@@ -11,6 +11,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running test (excluded from the smoke run via -m 'not slow')",
     )
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one (run: -m gpu)")
 
 
 @pytest.fixture

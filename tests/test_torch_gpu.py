@@ -1,0 +1,124 @@
+"""The port's CUDA kernels on the card, against their plain torch versions.
+
+Run on a machine with a CUDA card:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+Without a card every test skips (the `cuda` fixture decides, at run time).
+Nothing here imports `jax` or `repro`: the oracles are the port's plain
+versions and its numpy stage loop.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.core import modmath as mm
+from repro_torch.core import ntt as ntt_core
+from repro_torch.kernels import modmul as kmod
+from repro_torch.kernels import ntt as kntt
+from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.gpu
+
+Q = mm.DEFAULT_Q
+# (batch, n, tile): small, then the shapes of chip_smoke.py's main path;
+# tile 65536 is clamped to 32768 (128 KiB of shared memory per CTA).
+NTT_SHAPES = [(4, 1024, None), (2, 16384, 2048), (1024, 4096, None), (64, 65536, 8192),
+              (2, 65536, 65536)]
+MODMUL_SHAPES = [(3, 1000), (64, 65536)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def residues(shape, device, seed):
+    return mm.to_device_u32(np.random.default_rng(seed).integers(0, Q, shape), device)
+
+
+def same(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def launches(ctx, forward, tile, device):
+    """(kernel name, run kernel, run plain) for each launch of one transform."""
+    n = ctx.n
+    tw, tw_sh = ntt_core.device_tables(ctx, device).for_direction(forward)
+    scale = None if forward else (ctx.n_inv, ctx.n_inv_shoup)
+    plan = ntt_core.forward_stages(n) if forward else ntt_core.inverse_stages(n)
+    if tile >= n:
+        args = (tw, tw_sh, plan, n, ctx.q, scale)
+        return [("ntt_tile", kntt._tile_pass, kntt.ntt_tile_plain, args)]
+    packed, packed_sh, local = kntt._packed_tables(ctx, tile, forward, device)
+    out = [("ntt_tile", kntt._tile_pass, kntt.ntt_tile_plain,
+            (packed, packed_sh, local, tile, ctx.q, None))]
+    inter = [st for st in plan if st.stride >= tile]
+    for i, st in enumerate(inter):
+        s = scale if (not forward and i == len(inter) - 1) else None
+        out.append(("ntt_pair", kntt._pair_pass, kntt.ntt_pair_plain, (tw, tw_sh, st, ctx.q, s)))
+    return out
+
+
+@pytest.mark.parametrize("batch,n,tile", NTT_SHAPES)
+@pytest.mark.parametrize("forward", [True, False])
+def test_ntt_kernels_match_plain(cuda, batch, n, tile, forward):
+    ctx = ntt_core.make_context(Q, n)
+    for i, (name, kernel, plain, args) in enumerate(launches(ctx, forward, kntt.resolve_tile(tile, n), cuda)):
+        src = residues((batch, n), cuda, seed=i)
+        got, exp = torch.empty_like(src), torch.empty_like(src)
+        kernel(src, got, *args)
+        plain(src, exp, *args)
+        torch.cuda.synchronize()
+        assert same(got, exp), (name, i)
+        in_place = src.clone()
+        kernel(in_place, in_place, *args)
+        assert same(in_place, exp), (name, i, "in place")
+
+
+@pytest.mark.parametrize("batch,n,tile", NTT_SHAPES)
+def test_ntt_cuda_matches_cpu_path(cuda, batch, n, tile):
+    ctx = ntt_core.make_context(Q, n)
+    x = np.random.default_rng(n).integers(0, Q, (batch, n)).astype(np.uint32)
+    for forward in (True, False):
+        fn = ops.ntt if forward else ops.intt
+        got = fn(x, ctx, tile=tile)
+        assert got.device.type == "cuda"
+        exp = fn(x, ctx, tile=tile, device="cpu")
+        assert np.array_equal(mm.to_numpy_u32(got), mm.to_numpy_u32(exp)), forward
+
+
+@pytest.mark.parametrize("shape", MODMUL_SHAPES)
+def test_modmul_kernel_matches_plain(cuda, shape):
+    ctx = ntt_core.make_context(Q, 256)
+    a, b = residues(shape, cuda, 1), residues(shape, cuda, 2)
+    got = kmod.modmul_cuda(a, b, ctx)
+    assert same(got, kmod.modmul_plain(a, b, ctx))
+    exact = (mm.to_numpy_u32(a).astype(object) * mm.to_numpy_u32(b).astype(object)) % Q
+    assert np.array_equal(mm.to_numpy_u32(got).astype(object), exact)
+
+
+@pytest.mark.parametrize("batch,n", [(4, 1024), (1024, 4096), (64, 65536)])
+def test_polymul_matches_numpy_oracle(cuda, batch, n):
+    ctx = ntt_core.make_context(Q, n)
+    rng = np.random.default_rng(batch + n)
+    a = rng.integers(0, Q, (batch, n)).astype(np.uint32)
+    b = rng.integers(0, Q, (batch, n)).astype(np.uint32)
+    kernels.reset_launch_counts()
+    out = mm.to_numpy_u32(ops.polymul_ntt(a, b, ctx))
+    counts = kernels.launch_counts()
+    assert counts["ntt_tile"] == 3 and counts["modmul"] == 1
+    assert counts["ntt_pair"] == 3 * ((n // min(8192, n)).bit_length() - 1)
+    rows = rng.choice(batch, size=min(4, batch), replace=False)
+    assert np.array_equal(out[rows], ntt_core.polymul_negacyclic_np(a[rows], b[rows], ctx))
+
+
+def test_tables_on_another_device_raise(cuda):
+    ctx = ntt_core.make_context(Q, 1024)
+    x = residues((2, 1024), cuda, 0)
+    tw, tw_sh = ntt_core.device_tables(ctx, "cpu").for_direction(True)
+    with pytest.raises(ValueError, match="is on"):
+        kntt._tile_pass(x, torch.empty_like(x), tw, tw_sh, ntt_core.forward_stages(1024), 1024, Q)
