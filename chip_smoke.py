@@ -6,27 +6,35 @@
 Phases, one JSON line each:
   1. device   the card's name, count and power limit;
   2. build    nvcc build of `src/repro_torch/kernels/csrc/` with ptxas's
-              register / shared-memory report;
+              register / shared-memory report (a stack frame or a spill
+              fails the run), then a `sass` line: each kernel's SASS
+              instruction mix, where the toolkit has `cuobjdump`;
   3. check    each kernel (ntt_tile, ntt_pair, modmul) against its plain
-              torch version on the card, bit-exact, both directions;
+              torch version on the card, bit-exact, both directions, in
+              place and out of place, at the main shapes and on a grid of
+              edge cases (tiles 2 to 32768, 1 to 6 inter-tile stages);
   4. main     `polymul_ntt` at n=65536 x batch 64 and n=4096 x batch 1024
               (16 MiB per operand: an RNS-CKKS batch of 64 towers at
               logN=16, and a batch of logN=12 polynomials), bit-exact
               against the numpy stage loop on sampled rows and against the
               plain torch path on all rows, plus intt(ntt(x)) == x; every
               kernel must have launched during this phase;
-  5. timing   CUDA-event times per launch beside the byte bound, the plain
-              version and a library call where one exists, and the whole
-              polymul_ntt.
+  5. timing   CUDA-event times per launch beside the bound (the larger of
+              bytes over the memory rate and integer instructions over the
+              issue rate), the plain version and a library call where one
+              exists, and the whole polymul_ntt.
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises (exit code != 0).
 Imports nothing of `jax` or `repro`.
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -44,13 +52,31 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import modmul as kmod  # noqa: E402
 from repro_torch.kernels import ntt as kntt  # noqa: E402
 
-#: Published H100 SXM memory rate (NVIDIA data sheet); bounds are bytes over it.
+#: Published H100 SXM memory rate (NVIDIA data sheet); byte bounds are bytes over it.
 HBM_BYTES_PER_S = 3.35e12
+#: Op bounds: an SM issues 4 warp instructions (128 lane operations) per
+#: clock, at most, at the card's maximum SM clock (nvidia-smi clocks.max.sm).
+LANE_OPS_PER_SM_CLOCK = 128
+#: Instructions per butterfly on sm_90a, read from the kernels' SASS
+#: (`cuobjdump -sass`): the Shoup product as IMAD.HI + IMAD + IMAD, the add
+#: and the subtract as IMAD.IADD each, and the three reductions mod q as one
+#: VIADDMNMX each (the source's formulas count 11: see csrc/modmath.cuh).
+OPS_PER_BUTTERFLY = 8
 SEED = 0
 TILE = 8192
-#: (batch, n) of the main path: 64 x 65536 runs B2 x3 + B1 per transform,
-#: 1024 x 4096 runs the fused B1.
+#: (batch, n) of the main path: 64 x 65536 runs one B2 launch of 3 stages
+#: and one B1 per transform, 1024 x 4096 runs the fused B1.
 MAIN_SHAPES = ((64, 65536), (1024, 4096))
+#: (batch, n, tile) edge cases of the check phase: tiles 2 to MAX_TILE
+#: (B1's groups of up to 5 stages meet tiles of 1 to 15 stages), and
+#: n / tile in {2, 8, 16, 32, 64}, which gives B2 groups for 1, 3, 4, 5 and
+#: 6 inter-tile stages (at most 4 per launch).
+CHECK_SHAPES = (
+    (3, 2, 2), (5, 16, 16), (3, 32, 32), (2, 128, 128),
+    (3, 64, 2), (3, 256, 8), (2, 1024, 16), (5, 512, 32),
+    (3, 128, 64), (2, 4096, 64), (2, 2048, 128), (4, 8192, 1024), (2, 16384, 2048),
+    (1, 32768, 32768), (2, 65536, 32768),
+)
 L2_BYTES = 50 * 2**20
 #: `torch.cuda._sleep` spins for clock cycles; the SM clock is at most
 #: ~2 GHz, so this many cycles last at least 1 ms.
@@ -74,8 +100,16 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: int) -> float:
-    return nbytes / HBM_BYTES_PER_S * 1e3
+def bound(nbytes: int, butterflies: int, sm_mhz: float) -> dict:
+    """The least time the card could take: the larger of `nbytes` over the
+    memory rate and the butterflies' integer instructions over the issue
+    rate of 132 SMs at `sm_mhz`."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = butterflies * OPS_PER_BUTTERFLY / (sms * LANE_OPS_PER_SM_CLOCK * sm_mhz * 1e6) * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "bytes_bound_ms": bytes_ms, "butterflies": butterflies,
+            "ops_bound_ms": ops_ms, "sm_mhz": sm_mhz}
 
 
 def residues(rng, shape, q: int, device) -> torch.Tensor:
@@ -134,61 +168,88 @@ def time_ms(fn, iters: int, reps: int = 5, warmup: int = 3) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def pass_cases(ctx, batch: int, tile: int, forward: bool, device):
-    """The launches `ntt_cuda` makes for one transform, as
-    (kernel, args) with args (tw, tw_sh, plan or stage, [tile,] scale)."""
+def pass_cases(ctx, tile: int, forward: bool, device):
+    """The launches `ntt_cuda` makes for one transform, in order, as
+    (kernel, args) with args (tw, tw_sh, plan or group, [tile,] scale)."""
     n = ctx.n
     tw, tw_sh = ntt_core.device_tables(ctx, device).for_direction(forward)
     scale = None if forward else (ctx.n_inv, ctx.n_inv_shoup)
-    plan = ntt_core.forward_stages(n) if forward else ntt_core.inverse_stages(n)
     if tile >= n:
+        plan = ntt_core.forward_stages(n) if forward else ntt_core.inverse_stages(n)
         return [("ntt_tile", (tw, tw_sh, plan, n, scale))]
     packed, packed_sh, local = kntt._packed_tables(ctx, tile, forward, device)
-    inter = [st for st in plan if st.stride >= tile]
-    cases = [("ntt_tile", (packed, packed_sh, local, tile, None))]
-    for i, st in enumerate(inter):
-        last = not forward and i == len(inter) - 1
-        cases.append(("ntt_pair", (tw, tw_sh, st, scale if last else None)))
-    return cases
+    groups = kntt.inter_groups(n, tile, forward)
+    pairs = [("ntt_pair", (tw, tw_sh, g, scale if not forward and i == len(groups) - 1 else None))
+             for i, g in enumerate(groups)]
+    tile_case = ("ntt_tile", (packed, packed_sh, local, tile, None))
+    return pairs + [tile_case] if forward else [tile_case] + pairs
 
 
-def check_kernels(rng, device, shapes=MAIN_SHAPES, tile=TILE) -> dict:
-    """Every kernel launch of the main path's transforms against its plain
-    version on the same inputs and tables, on `device`."""
+def run_case(name, args, src, dst, q, plain=False) -> None:
+    """One launch of `pass_cases` from `src` into `dst`: the kernel, or its
+    plain version."""
+    if name == "ntt_tile":
+        tw, tw_sh, stages, t, scale = args
+        fn = kntt.ntt_tile_plain if plain else kntt._tile_pass
+        fn(src, dst, tw, tw_sh, stages, t, q, scale)
+    else:
+        tw, tw_sh, group, scale = args
+        fn = kntt.ntt_pair_plain if plain else kntt._pair_pass
+        fn(src, dst, tw, tw_sh, group, q, scale)
+
+
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of `t` one word past a 16-byte boundary: the kernels' 4-byte
+    access paths."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_kernels(rng, device, shapes=None, tile=TILE) -> dict:
+    """Every kernel launch of the transforms at the main shapes and at
+    CHECK_SHAPES against its plain version on the same inputs and tables,
+    on `device`: out of place, in place, and from a misaligned buffer."""
+    if shapes is None:
+        shapes = [(b, n, tile) for b, n in MAIN_SHAPES] + list(CHECK_SHAPES)
     errs = {name: 0 for name in KERNEL_INFO}
     checks = []
-    for batch, n in shapes:
+
+    def record(entry, got, exp):
+        ok = same(got, exp)
+        errs[entry["kernel"]] = max(errs[entry["kernel"]], max_abs_err(got, exp))
+        checks.append({**entry, "bit_exact": ok})
+        if not ok:
+            raise AssertionError(f"{entry['kernel']} differs from its plain version: {checks[-1]}")
+
+    for batch, n, t in shapes:
         ctx = ntt_core.make_context(mm.DEFAULT_Q, n)
+        t = kntt.resolve_tile(t, n)
         for forward in (True, False):
-            for name, args in pass_cases(ctx, batch, tile, forward, device):
+            for name, args in pass_cases(ctx, t, forward, device):
                 src = residues(rng, (batch, n), ctx.q, device)
-                got, exp = torch.empty_like(src), torch.empty_like(src)
-                if name == "ntt_tile":
-                    tw, tw_sh, stages, t, scale = args
-                    kntt._tile_pass(src, got, tw, tw_sh, stages, t, ctx.q, scale)
-                    kntt.ntt_tile_plain(src, exp, tw, tw_sh, stages, t, ctx.q, scale)
-                    what = f"{len(stages)} stages, tile {t}"
-                else:
-                    tw, tw_sh, st, scale = args
-                    kntt._pair_pass(src, got, tw, tw_sh, st, ctx.q, scale)
-                    kntt.ntt_pair_plain(src, exp, tw, tw_sh, st, ctx.q, scale)
-                    what = f"stride {st.stride}"
-                ok = same(got, exp)
-                errs[name] = max(errs[name], max_abs_err(got, exp))
-                checks.append({"kernel": name, "batch": batch, "n": n, "forward": forward,
-                               "what": what, "scale": args[-1] is not None, "bit_exact": ok})
-                if not ok:
-                    raise AssertionError(f"{name} differs from its plain version: {checks[-1]}")
+                exp = torch.empty_like(src)
+                run_case(name, args, src, exp, ctx.q, plain=True)
+                stages = args[2]
+                entry = {"kernel": name, "batch": batch, "n": n, "tile": t, "forward": forward,
+                         "strides": [st.stride for st in stages] if name == "ntt_pair" else None,
+                         "stages": len(stages), "scale": args[-1] is not None}
+                got = torch.empty_like(src)
+                run_case(name, args, src, got, ctx.q)
+                record({**entry, "mode": "out of place"}, got, exp)
+                got = src.clone()
+                run_case(name, args, got, got, ctx.q)
+                record({**entry, "mode": "in place"}, got, exp)
+                if batch * n <= 1 << 16:
+                    got = misaligned(src)
+                    run_case(name, args, got, got, ctx.q)
+                    record({**entry, "mode": "in place, misaligned"}, got, exp)
         a = residues(rng, (batch, n), ctx.q, device)
         b = residues(rng, (batch, n), ctx.q, device)
-        got = kmod.modmul_cuda(a, b, ctx)
-        exp = kmod.modmul_plain(a, b, ctx)
-        ok = same(got, exp)
-        errs["modmul"] = max(errs["modmul"], max_abs_err(got, exp))
-        checks.append({"kernel": "modmul", "batch": batch, "n": n, "bit_exact": ok})
-        if not ok:
-            raise AssertionError(f"modmul differs from its plain version: {checks[-1]}")
-    return {"max_abs_err": errs, "checks": checks}
+        record({"kernel": "modmul", "batch": batch, "n": n},
+               kmod.modmul_cuda(a, b, ctx), kmod.modmul_plain(a, b, ctx))
+    return {"max_abs_err": errs, "cases": len(checks), "checks": checks}
 
 
 # ---------------------------------------------------------------------------
@@ -196,15 +257,17 @@ def check_kernels(rng, device, shapes=MAIN_SHAPES, tile=TILE) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def polymul_launches(n: int, tile=TILE) -> dict:
+    """Launches of one polymul_ntt: 3 transforms (`launch_plan`) and 1 modmul."""
+    return {**{k: 3 * v for k, v in kntt.launch_plan(n, tile).items()}, "modmul": 1}
+
+
 def expected_launches(shapes=MAIN_SHAPES, tile=TILE) -> dict:
-    """Launches of one polymul_ntt per shape: 3 transforms and 1 modmul."""
-    counts = {"ntt_tile": 0, "ntt_pair": 0, "modmul": 0}
+    """Launches of one polymul_ntt per shape."""
+    counts = collections.Counter()
     for _, n in shapes:
-        n_pair = (n // min(tile, n)).bit_length() - 1  # stages with stride >= tile
-        counts["ntt_tile"] += 3
-        counts["ntt_pair"] += 3 * n_pair
-        counts["modmul"] += 1
-    return counts
+        counts.update(polymul_launches(n, tile))
+    return dict(counts)
 
 
 def drive_main_path(rng, device, shapes=MAIN_SHAPES) -> dict:
@@ -247,7 +310,7 @@ def drive_main_path(rng, device, shapes=MAIN_SHAPES) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def time_kernels(rng, device, batch: int, n: int, tile: int = TILE) -> dict:
+def time_kernels(rng, device, batch: int, n: int, sm_mhz: float, tile: int = TILE) -> dict:
     """Per-launch times of each kernel at (batch, n), cold: a ring of
     buffers larger than L2, so each launch reads from device memory."""
     ctx = ntt_core.make_context(mm.DEFAULT_Q, n)
@@ -255,51 +318,37 @@ def time_kernels(rng, device, batch: int, n: int, tile: int = TILE) -> dict:
     ring = max(2, -(-2 * L2_BYTES // (4 * words)) + 1)
     bufs = [residues(rng, (batch, n), ctx.q, device) for _ in range(ring)]
     out = {}
-    tile_case, *pair_cases = pass_cases(ctx, batch, min(tile, n), True, device)
-    tw, tw_sh, stages, t, _ = tile_case[1]
-    table_bytes = 2 * 4 * tw.numel()
-    butterflies = words // 2
+    cases = dict(pass_cases(ctx, kntt.resolve_tile(tile, n), True, device))  # one B2 group at most here
     it = itertools.count()
 
-    def tile_launch():
-        x = bufs[next(it) % ring]
-        kntt._tile_pass(x, x, tw, tw_sh, stages, t, ctx.q)
-
-    def record(kernel_fn, warm_fn, plain_fn, library_fn, nbytes, **extra):
+    def record(kernel_fn, warm_fn, plain_fn, library_fn, nbytes, butterflies, **extra):
         cold = time_ms(kernel_fn, 50)
         plain = time_ms(plain_fn, 3, reps=3, warmup=1)
         rec = {**cold, "plain_ms": plain["ms"], "library_ms": None,
-               "bytes": nbytes, "bound_ms": bound_ms(nbytes), **extra}
+               **bound(nbytes, butterflies, sm_mhz), **extra}
         if warm_fn is not None:
             rec["warm_ms"] = time_ms(warm_fn, 50)["ms"]
         if library_fn is not None:
             rec["library_ms"] = time_ms(library_fn, 20)["ms"]
         return rec
 
-    def tile_launch():
-        x = bufs[next(it) % ring]
-        kntt._tile_pass(x, x, tw, tw_sh, stages, t, ctx.q)
-
-    out["ntt_tile"] = record(
-        tile_launch,
-        lambda: kntt._tile_pass(bufs[0], bufs[0], tw, tw_sh, stages, t, ctx.q),
-        lambda: kntt.ntt_tile_plain(bufs[0], bufs[1], tw, tw_sh, stages, t, ctx.q),
-        None, 2 * 4 * words + table_bytes,
-        butterflies=butterflies * len(stages), stages=len(stages), tile=t,
-    )
-    if pair_cases:
-        ptw, ptw_sh, st, _ = pair_cases[0][1]
-
-        def pair_launch():
+    for name, args in cases.items():
+        def launch(name=name, args=args):
             x = bufs[next(it) % ring]
-            kntt._pair_pass(x, x, ptw, ptw_sh, st, ctx.q)
+            run_case(name, args, x, x, ctx.q)
 
-        out["ntt_pair"] = record(
-            pair_launch,
-            lambda: kntt._pair_pass(bufs[0], bufs[0], ptw, ptw_sh, st, ctx.q),
-            lambda: kntt.ntt_pair_plain(bufs[0], bufs[1], ptw, ptw_sh, st, ctx.q),
-            None, 2 * 4 * words + 2 * 4 * st.blocks,
-            butterflies=butterflies, stride=st.stride,
+        stages = args[2]
+        table_bytes = 2 * 4 * sum(st.blocks for st in stages)
+        if name == "ntt_tile":
+            table_bytes = 2 * 4 * args[0].numel()  # every tile reads its packed row
+            extra = {"stages": len(stages), "tile": args[3]}
+        else:
+            extra = {"stages": len(stages), "strides": [st.stride for st in stages]}
+        out[name] = record(
+            launch,
+            lambda name=name, args=args: run_case(name, args, bufs[0], bufs[0], ctx.q),
+            lambda name=name, args=args: run_case(name, args, bufs[0], bufs[1], ctx.q, plain=True),
+            None, 2 * 4 * words + table_bytes, words // 2 * len(stages), **extra,
         )
 
     def modmul_launch():
@@ -313,28 +362,54 @@ def time_kernels(rng, device, batch: int, n: int, tile: int = TILE) -> dict:
 
     out["modmul"] = record(
         modmul_launch, None, lambda: kmod.modmul_plain(bufs[0], bufs[1], ctx),
-        library_modmul, 3 * 4 * words,
+        library_modmul, 3 * 4 * words, 0,
         library_call="(a.view(int32).long() * b.view(int32).long()) % q, int64",
     )
     return out
 
 
-def time_polymul(rng, device, batch: int, n: int, tile: int = TILE) -> dict:
+def time_polymul(rng, device, batch: int, n: int, sm_mhz: float, tile: int = TILE) -> dict:
+    """`polymul_ntt` per call, beside the sum of its launches' bounds."""
     ctx = ntt_core.make_context(mm.DEFAULT_Q, n)
     a = residues(rng, (batch, n), ctx.q, device)
     b = residues(rng, (batch, n), ctx.q, device)
     words = batch * n
-    t = min(tile, n)
-    n_pair = (n // t).bit_length() - 1
-    table_bytes = 2 * 4 * t * (n // t)
-    per_transform = (n_pair * 2 * 4 * words) + 2 * 4 * words + table_bytes
-    nbytes = 3 * per_transform + 3 * 4 * words
+    t = kntt.resolve_tile(tile, n)
+    launches = polymul_launches(n, tile)
+    transforms = launches["ntt_tile"]
+    # each launch reads and writes the data once; B1 reads a table of n words x 2
+    nbytes = ((launches["ntt_tile"] + launches["ntt_pair"]) * 2 * 4 * words
+              + transforms * 2 * 4 * n + 3 * 4 * words)
+    butterflies = transforms * (words // 2) * (n.bit_length() - 1)
     return {
         "batch": batch, "n": n, "tile": t,
         **time_ms(lambda: ops.polymul_ntt(a, b, ctx, tile=tile), 20),
-        "bound_ms": bound_ms(nbytes), "bytes": nbytes,
-        "launches": {"ntt_tile": 3, "ntt_pair": 3 * n_pair, "modmul": 1},
+        **bound(nbytes, butterflies, sm_mhz), "launches": launches,
     }
+
+
+def sass_summary(library: str) -> dict | None:
+    """Per kernel of the built library, its SASS instruction count by
+    opcode class, from `cuobjdump -sass` where the toolkit has it."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.access(tool, os.X_OK):
+        return None
+    out = subprocess.run([tool, "-sass", library], capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    kernels, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and name is not None:
+            op = m.group(1)
+            kernels[name][op.split(".")[0]] += 1
+            if op.startswith("IMAD.HI"):
+                kernels[name]["IMAD.HI"] += 1
+    return {k: dict(sorted(v.items())) for k, v in kernels.items()}
 
 
 def main() -> int:
@@ -354,6 +429,11 @@ def main() -> int:
     report = _build.build_report()
     emit({"phase": "build", "nvcc_seconds": report["seconds"], "cached": report["cached"],
           "load_seconds": time.perf_counter() - t0, "ptxas": report["ptxas"]})
+    # a stack frame means registers arrays went to local memory; a spill, registers ran out
+    local = [ln for ln in report["ptxas"] if re.search(r"\b[1-9]\d* bytes (stack frame|spill)", ln)]
+    if local:
+        raise AssertionError(f"ptxas reports local memory use: {local}")
+    emit({"phase": "sass", "kernels": sass_summary(report["library"])})
 
     rng = np.random.default_rng(SEED)
     checked = check_kernels(rng, device)
@@ -366,8 +446,9 @@ def main() -> int:
     if launches != expected or any(v <= 0 for v in launches.values()):
         raise AssertionError(f"launch counts {launches}, expected {expected}")
 
-    timing = {f"{b}x{n}": time_kernels(rng, device, b, n) for b, n in MAIN_SHAPES}
-    polymul = [time_polymul(rng, device, b, n) for b, n in MAIN_SHAPES]
+    sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    timing = {f"{b}x{n}": time_kernels(rng, device, b, n, sm_mhz) for b, n in MAIN_SHAPES}
+    polymul = [time_polymul(rng, device, b, n, sm_mhz) for b, n in MAIN_SHAPES]
     power = nvidia_smi("name,power.limit,power.draw,clocks.sm,temperature.gpu")
     emit({"phase": "timing", "card": smi, "kernels": timing, "polymul_ntt": polymul,
           "nvidia_smi_after": power})
@@ -381,7 +462,7 @@ def main() -> int:
             "launches": launches[kname], "max_abs_err": checked["max_abs_err"][kname],
             "bit_exact": checked["max_abs_err"][kname] == 0,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": "bytes", "library_ms": rec["library_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": list(MAIN_SHAPES[0]),
         })
     emit({"kernels": rows})

@@ -81,7 +81,7 @@ def _build() -> tuple[pathlib.Path, dict]:
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         ptxas = (out_dir / "ptxas.txt").read_text().splitlines()
-        return lib_path, {"seconds": 0.0, "cached": True, "ptxas": ptxas}
+        return lib_path, {"seconds": 0.0, "cached": True, "ptxas": ptxas, "library": str(lib_path)}
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): cannot build the kernels")
@@ -108,13 +108,13 @@ def _build() -> tuple[pathlib.Path, dict]:
                 raise
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return lib_path, {"seconds": seconds, "cached": False, "ptxas": ptxas}
+    return lib_path, {"seconds": seconds, "cached": False, "ptxas": ptxas, "library": str(lib_path)}
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # c_void_p for every pointer and the stream: a bare int would be cut to 32 bits.
     P, I, U, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong
-    lib.ntt_tile_launch.argtypes = [P, P, P, P, L, I, I, P, P, I, I, U, I, U, U, P]
+    lib.ntt_tile_launch.argtypes = [P, P, P, P, L, I, I, I, U, I, U, U, P]
     lib.ntt_tile_launch.restype = I
     lib.ntt_pair_launch.argtypes = [P, P, P, P, L, I, I, I, I, U, I, U, U, P]
     lib.ntt_pair_launch.restype = I
@@ -139,8 +139,9 @@ def load() -> ctypes.CDLL:
 
 
 def build_report() -> dict:
-    """Build seconds, whether the library was cached, and ptxas's report
-    of each kernel's registers and shared memory (after `load()`)."""
+    """Build seconds, whether the library was cached, ptxas's report of
+    each kernel's registers and shared memory, and the library's path
+    (after `load()`)."""
     load()
     return dict(_report)
 

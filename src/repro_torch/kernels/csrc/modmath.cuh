@@ -14,14 +14,16 @@
 
 namespace repro_torch {
 
+// x in [0, 2q) -> x mod q.  x - q wraps above x when x < q, so the unsigned
+// minimum picks the reduced value: two instructions, no compare and select.
+__device__ __forceinline__ uint32_t reduce_once(uint32_t x, uint32_t q) { return min(x, x - q); }
+
 __device__ __forceinline__ uint32_t addmod(uint32_t a, uint32_t b, uint32_t q) {
-  const uint32_t s = a + b;
-  return s >= q ? s - q : s;
+  return reduce_once(a + b, q);
 }
 
 __device__ __forceinline__ uint32_t submod(uint32_t a, uint32_t b, uint32_t q) {
-  const uint32_t d = a + q - b;
-  return d >= q ? d - q : d;
+  return reduce_once(a + q - b, q);
 }
 
 // a * w mod q with w_sh = floor(w * 2^32 / q): quotient estimate from the
@@ -29,8 +31,7 @@ __device__ __forceinline__ uint32_t submod(uint32_t a, uint32_t b, uint32_t q) {
 __device__ __forceinline__ uint32_t shoup_mulmod(uint32_t a, uint32_t w, uint32_t w_sh,
                                                  uint32_t q) {
   const uint32_t quot = __umulhi(a, w_sh);
-  const uint32_t r = a * w - quot * q;  // in [0, 2q)
-  return r >= q ? r - q : r;
+  return reduce_once(a * w - quot * q, q);  // a*w - quot*q is in [0, 2q)
 }
 
 // Montgomery REDC(a * b) = a * b * 2^-32 mod q, qprime = -q^-1 mod 2^32.

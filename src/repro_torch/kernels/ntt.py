@@ -3,23 +3,30 @@
 Two regimes, as in the Pallas version:
 
   n <= tile  -> the reference's `_fused_full`, here one `ntt_tile` launch
-      (B1, `csrc/ntt.cu`) inside `ntt_cuda`: every stage of a row in shared
-      memory, one HBM read and one write.
-  n >  tile  -> `_two_regime`: one `ntt_pair` launch (B2) per stage with
-      stride >= tile, and one `ntt_tile` launch for all stages with stride
-      < tile, each tile fused over its packed twiddle row
-      (`_pack_tile_stages`, the reference's packing as is).
+      (B1, `csrc/ntt.cu`) inside `ntt_cuda`: every stage of a row on chip,
+      one HBM read and one write.
+  n >  tile  -> `_two_regime`: the stages with stride >= tile in groups of
+      up to `PAIR_MAX_STAGES` consecutive stages, one `ntt_pair` launch (B2)
+      per group (`inter_groups`), and one `ntt_tile` launch for all stages
+      with stride < tile, each tile fused over its packed twiddle row
+      (`_packed_tables`).  `launch_plan` gives the launches per transform.
+
+Both kernels read twiddles in the full table's layout: the stage with B
+blocks (per row, or per tile) at [B, 2B) of the table (or of the tile's
+row), so a thread's run of twiddles is aligned and loads as 16-byte words.
 
 Each kernel has one wrapper, `_tile_pass` and `_pair_pass`, and the
 orchestration goes through them on either device.  On a CUDA tensor a
 wrapper launches its kernel (and counts the launch in `LAUNCHES`); on a CPU
 tensor it runs the kernel's plain torch version (`ntt_tile_plain`,
 `ntt_pair_plain`) on the same packed tables and the same stage plan, so the
-CPU tests exercise the tiling, packing and stage order that the card runs.
+CPU tests exercise the tiling, packing, grouping and stage order that the
+card runs.  Both wrappers check the plan against what the kernel runs and
+raise on any other, on either device.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 import threading
 
 import numpy as np
@@ -40,6 +47,8 @@ DEFAULT_TILE = 8192  # words: 32 KiB of shared memory per CTA
 #: Largest tile one CTA holds: 2^15 words = 128 KiB of the H100's 227 KB of
 #: shared memory per block (2^16 words would need 256 KiB).
 MAX_TILE = 32768
+#: Most stages one B2 launch runs: 2^4 words per column in registers.
+PAIR_MAX_STAGES = 4
 
 #: Kernel launches made by the wrappers, by kernel; plain versions add nothing.
 LAUNCHES = {"ntt_tile": 0, "ntt_pair": 0}
@@ -88,19 +97,99 @@ _PACKED_LOCK = threading.Lock()
 
 
 def _packed_tables(ctx: NttContext, tile: int, forward: bool, device: torch.device):
-    """`_pack_tile_stages` as uint32 tensors on `device`, once per
-    (q, n, tile, direction, device)."""
+    """B1's per-tile twiddle rows and stage plan as uint32 tensors on
+    `device`, once per (q, n, tile, direction, device).
+
+    The reference's packing (`_pack_tile_stages`), with each stage's slice
+    moved to [blocks, 2 * blocks) of the row: the full table's layout, which
+    the kernel reads as aligned vectors.
+    """
     key = (ctx.q, ctx.n, tile, forward, str(device))
     with _PACKED_LOCK:
         hit = _PACKED.get(key)
         if hit is None:
             packed, packed_sh, local = _pack_tile_stages(ctx, ctx.n, tile, forward)
+            rows, rows_sh = np.zeros_like(packed), np.zeros_like(packed_sh)
+            for st in local:
+                rows[:, st.blocks : 2 * st.blocks] = packed[:, st.tw_lo : st.tw_lo + st.blocks]
+                rows_sh[:, st.blocks : 2 * st.blocks] = packed_sh[:, st.tw_lo : st.tw_lo + st.blocks]
             hit = _PACKED[key] = (
-                mm.to_device_u32(packed, device),
-                mm.to_device_u32(packed_sh, device),
-                tuple(local),
+                mm.to_device_u32(rows, device),
+                mm.to_device_u32(rows_sh, device),
+                tuple(Stage(st.blocks, st.stride, st.blocks, st.gs) for st in local),
             )
     return hit
+
+
+@functools.lru_cache(maxsize=None)
+def inter_groups(n: int, tile: int, forward: bool) -> tuple[tuple[Stage, ...], ...]:
+    """The stages with stride >= `tile` in run order, cut into the fewest
+    groups of at most `PAIR_MAX_STAGES` consecutive stages, as even as
+    possible (larger groups first): one B2 launch each.  Empty when
+    tile >= n."""
+    plan = forward_stages(n) if forward else inverse_stages(n)
+    inter = [st for st in plan if st.stride >= tile]
+    count = -(-len(inter) // PAIR_MAX_STAGES)
+    groups, start = [], 0
+    for g in range(count):
+        end = start + len(inter) // count + (g < len(inter) % count)
+        groups.append(tuple(inter[start:end]))
+        start = end
+    return tuple(groups)
+
+
+def launch_plan(n: int, tile: int | None = None) -> dict[str, int]:
+    """Kernel launches of one transform (either direction) of rows of n,
+    at `tile` resolved as `ntt_cuda` resolves it."""
+    t = resolve_tile(tile, n)
+    return {"ntt_tile": 1, "ntt_pair": len(inter_groups(n, t, True))}
+
+
+def _check_table_layout(stages, what: str) -> None:
+    for st in stages:
+        if st.tw_lo != st.blocks:
+            raise ValueError(f"{what} reads twiddles in the full table's layout (tw_lo == blocks), got {st}")
+
+
+@functools.lru_cache(maxsize=256)
+def _tile_plan(stages: tuple[Stage, ...], tile: int) -> bool:
+    """B1's direction (True for GS) for `stages`, which must be the whole
+    run of the log2(tile) strides < tile: going down (CT) or going up (GS),
+    twiddles in the full table's layout.  Any other plan raises."""
+    if len({st.gs for st in stages}) != 1:
+        raise ValueError("a tile pass runs stages of one direction")
+    for st in stages:
+        if st.blocks * 2 * st.stride != tile:
+            raise ValueError(f"{st} does not fit a tile of {tile}")
+    gs = stages[0].gs
+    bits = range(_log2(tile)) if gs else range(_log2(tile) - 1, -1, -1)
+    if [st.stride for st in stages] != [1 << s for s in bits]:
+        raise ValueError(
+            f"a tile pass runs every stride < {tile} in order ({'up' if gs else 'down'}), "
+            f"got strides {[st.stride for st in stages]}"
+        )
+    _check_table_layout(stages, "a tile pass")
+    return gs
+
+
+@functools.lru_cache(maxsize=256)
+def _pair_plan(stages: tuple[Stage, ...], n: int) -> tuple[bool, int]:
+    """(direction, log2 of the smallest stride) for B2: 1 to
+    `PAIR_MAX_STAGES` stages of one direction with consecutive strides, in
+    run order, twiddles in the full table's layout.  Any other plan raises."""
+    if not 1 <= len(stages) <= PAIR_MAX_STAGES:
+        raise ValueError(f"a pair pass runs 1 to {PAIR_MAX_STAGES} stages, got {len(stages)}")
+    if len({st.gs for st in stages}) != 1:
+        raise ValueError("a pair pass runs stages of one direction")
+    for st in stages:
+        if st.blocks * 2 * st.stride != n:
+            raise ValueError(f"{st} does not fit rows of {n}")
+    gs = stages[0].gs
+    logs = [_log2(st.stride) for st in stages]
+    if any(b - a != (1 if gs else -1) for a, b in zip(logs, logs[1:])):
+        raise ValueError(f"a pair pass runs consecutive strides in order, got {[st.stride for st in stages]}")
+    _check_table_layout(stages, "a pair pass")
+    return gs, min(logs)
 
 
 # ---------------------------------------------------------------------------
@@ -134,31 +223,29 @@ def ntt_tile_plain(src, dst, tw, tw_sh, stages, tile: int, q: int, scale=None) -
     dst.copy_(mm.to_u32(x).reshape(dst.shape))
 
 
+def _tile_launch_args(src, dst, tw, tw_sh, gs: bool, tile: int, q: int, scale) -> tuple:
+    """`ntt_tile_launch`'s arguments but the stream, for checked tensors."""
+    n_inv, n_inv_sh = scale if scale is not None else (0, 0)
+    return (src.data_ptr(), dst.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(), dst.numel() // tile,
+            _log2(tile), dst.shape[-1] // tile, int(gs), q, int(scale is not None), n_inv, n_inv_sh)
+
+
 def _tile_pass(src, dst, tw, tw_sh, stages, tile: int, q: int, scale=None) -> None:
     """Wrapper of B1 `ntt_tile`: the kernel on a CUDA tensor, the plain
-    version on a CPU tensor.  `src` may be `dst` (in place)."""
+    version on a CPU tensor.  `stages` is the whole CT or GS run of strides
+    < tile (`_tile_plan`).  `src` may be `dst` (in place)."""
     n = dst.shape[-1] if dst.dim() == 2 else 0
     _check_pass(src, dst, tw, tw_sh, n)
     if tile < 2 or tile & (tile - 1) or n % tile or tile > MAX_TILE:
         raise ValueError(f"tile {tile} must be a power of two <= {MAX_TILE} dividing n={n}")
-    if len({st.gs for st in stages}) != 1:
-        raise ValueError("a tile pass runs stages of one direction")
-    for st in stages:
-        if st.blocks * 2 * st.stride != tile or st.tw_lo + st.blocks > tile:
-            raise ValueError(f"{st} does not fit a tile of {tile}")
+    gs = _tile_plan(tuple(stages), tile)
     if dst.is_cuda:
         if dst.numel() == 0:
             return
         lib = _build.load()
-        k = len(stages)
-        log_strides = (ctypes.c_int * k)(*(_log2(st.stride) for st in stages))
-        tw_los = (ctypes.c_int * k)(*(st.tw_lo for st in stages))
-        n_inv, n_inv_sh = scale if scale is not None else (0, 0)
         with torch.cuda.device(dst.device):
             err = lib.ntt_tile_launch(
-                src.data_ptr(), dst.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(),
-                dst.numel() // tile, tile, n // tile, log_strides, tw_los, k,
-                int(stages[0].gs), q, int(scale is not None), n_inv, n_inv_sh,
+                *_tile_launch_args(src, dst, tw, tw_sh, gs, tile, q, scale),
                 _build.stream_handle(dst.device),
             )
         _build.check(err, "ntt_tile")
@@ -169,43 +256,49 @@ def _tile_pass(src, dst, tw, tw_sh, stages, tile: int, q: int, scale=None) -> No
         raise ValueError(f"ntt_tile runs on CUDA or CPU tensors, not {dst.device}")
 
 
-def ntt_pair_plain(src, dst, tw, tw_sh, stage: Stage, q: int, scale=None) -> None:
-    """B2's plain version: one stage over the rows of `src` (batch, n),
-    block `blk` using twiddle `tw[stage.tw_lo + blk]`; optional scale."""
-    sl = slice(stage.tw_lo, stage.tw_lo + stage.blocks)
-    w = mm.as_i64(tw)[sl, None]
-    w_sh = mm.as_i64(tw_sh)[sl, None]
-    x = torch_stage(mm.as_i64(src), stage, w, w_sh, q)
+def ntt_pair_plain(src, dst, tw, tw_sh, stages, q: int, scale=None) -> None:
+    """B2's plain version: the stages of `stages` in order over the rows of
+    `src` (batch, n), block `blk` of a stage using twiddle
+    `tw[stage.tw_lo + blk]`; optional scale; into `dst`."""
+    x = mm.as_i64(src)
+    w_all, wsh_all = mm.as_i64(tw), mm.as_i64(tw_sh)
+    for st in stages:
+        sl = slice(st.tw_lo, st.tw_lo + st.blocks)
+        x = torch_stage(x, st, w_all[sl, None], wsh_all[sl, None], q)
     if scale is not None:
         x = mm.shoup_mulmod_u32(x, scale[0], scale[1], q)
     dst.copy_(mm.to_u32(x))
 
 
-def _pair_pass(src, dst, tw, tw_sh, stage: Stage, q: int, scale=None) -> None:
+def _pair_launch_args(src, dst, tw, tw_sh, gs: bool, low: int, count: int, q: int, scale) -> tuple:
+    """`ntt_pair_launch`'s arguments but the stream, for checked tensors."""
+    n_inv, n_inv_sh = scale if scale is not None else (0, 0)
+    return (src.data_ptr(), dst.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(), dst.shape[0],
+            _log2(dst.shape[-1]), low, count, int(gs), q, int(scale is not None), n_inv, n_inv_sh)
+
+
+def _pair_pass(src, dst, tw, tw_sh, stages, q: int, scale=None) -> None:
     """Wrapper of B2 `ntt_pair`: the kernel on a CUDA tensor, the plain
-    version on a CPU tensor.  `src` may be `dst` (in place)."""
+    version on a CPU tensor.  `stages` is one group of consecutive stages
+    (`_pair_plan`, `inter_groups`).  `src` may be `dst` (in place)."""
     n = dst.shape[-1] if dst.dim() == 2 else 0
     _check_pass(src, dst, tw, tw_sh, n)
     if n < 2 or n & (n - 1):
         raise ValueError(f"row length {n} must be a power of two")
-    if stage.blocks * 2 * stage.stride != n or stage.tw_lo + stage.blocks > n:
-        raise ValueError(f"{stage} does not fit rows of {n}")
+    gs, low = _pair_plan(tuple(stages), n)
     if dst.is_cuda:
         if dst.numel() == 0:
             return
         lib = _build.load()
-        n_inv, n_inv_sh = scale if scale is not None else (0, 0)
         with torch.cuda.device(dst.device):
             err = lib.ntt_pair_launch(
-                src.data_ptr(), dst.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(),
-                dst.numel() // 2, _log2(n // 2), _log2(stage.stride), stage.tw_lo,
-                int(stage.gs), q, int(scale is not None), n_inv, n_inv_sh,
+                *_pair_launch_args(src, dst, tw, tw_sh, gs, low, len(stages), q, scale),
                 _build.stream_handle(dst.device),
             )
         _build.check(err, "ntt_pair")
         LAUNCHES["ntt_pair"] += 1
     elif dst.device.type == "cpu":
-        ntt_pair_plain(src, dst, tw, tw_sh, stage, q, scale)
+        ntt_pair_plain(src, dst, tw, tw_sh, stages, q, scale)
     else:
         raise ValueError(f"ntt_pair runs on CUDA or CPU tensors, not {dst.device}")
 
@@ -265,19 +358,18 @@ def ntt_cuda(x: torch.Tensor, ctx: NttContext, forward: bool = True, tile: int |
 
 
 def _two_regime(src, dst, ctx, forward, tile, tw, tw_sh, scale) -> None:
-    """n > tile: one B2 launch per stage with stride >= tile, one B1 launch
+    """n > tile: one B2 launch per group of `inter_groups`, one B1 launch
     for the rest; the inverse's 1/N rides on its last B2 launch."""
     packed, packed_sh, local_stages = _packed_tables(ctx, tile, forward, dst.device)
-    plan_full = forward_stages(ctx.n) if forward else inverse_stages(ctx.n)
-    inter = [st for st in plan_full if st.stride >= tile]
+    groups = inter_groups(ctx.n, tile, forward)
     if forward:
         cur = src
-        for st in inter:  # large strides first
-            _pair_pass(cur, dst, tw, tw_sh, st, ctx.q)
+        for group in groups:  # large strides first
+            _pair_pass(cur, dst, tw, tw_sh, group, ctx.q)
             cur = dst
         _tile_pass(dst, dst, packed, packed_sh, local_stages, tile, ctx.q)
     else:
         _tile_pass(src, dst, packed, packed_sh, local_stages, tile, ctx.q)
-        for i, st in enumerate(inter):
-            last = i == len(inter) - 1
-            _pair_pass(dst, dst, tw, tw_sh, st, ctx.q, scale if last else None)
+        for i, group in enumerate(groups):
+            last = i == len(groups) - 1
+            _pair_pass(dst, dst, tw, tw_sh, group, ctx.q, scale if last else None)

@@ -23,9 +23,15 @@ pytestmark = pytest.mark.gpu
 
 Q = mm.DEFAULT_Q
 # (batch, n, tile): small, then the shapes of chip_smoke.py's main path;
-# tile 65536 is clamped to 32768 (128 KiB of shared memory per CTA).
+# tile 65536 is clamped to 32768 (128 KiB of shared memory per CTA).  Then
+# edge cases of the grouped kernels: tiles 2 to 128, where B1's register
+# groups meet the tile's edge and stage counts are not a multiple of the
+# group size, and n / tile of 8, 16, 32 and 64 (3 to 6 inter-tile stages,
+# at most 4 per B2 launch).
 NTT_SHAPES = [(4, 1024, None), (2, 16384, 2048), (1024, 4096, None), (64, 65536, 8192),
-              (2, 65536, 65536)]
+              (2, 65536, 65536), (3, 2, None), (5, 16, None), (3, 64, 2), (3, 256, 8),
+              (2, 1024, 16), (5, 512, 32), (3, 128, 64), (2, 4096, 64), (2, 2048, 128),
+              (1, 32768, None)]
 MODMUL_SHAPES = [(3, 1000), (64, 65536)]
 
 
@@ -56,10 +62,10 @@ def launches(ctx, forward, tile, device):
     packed, packed_sh, local = kntt._packed_tables(ctx, tile, forward, device)
     out = [("ntt_tile", kntt._tile_pass, kntt.ntt_tile_plain,
             (packed, packed_sh, local, tile, ctx.q, None))]
-    inter = [st for st in plan if st.stride >= tile]
-    for i, st in enumerate(inter):
-        s = scale if (not forward and i == len(inter) - 1) else None
-        out.append(("ntt_pair", kntt._pair_pass, kntt.ntt_pair_plain, (tw, tw_sh, st, ctx.q, s)))
+    groups = kntt.inter_groups(n, tile, forward)
+    for i, group in enumerate(groups):
+        s = scale if (not forward and i == len(groups) - 1) else None
+        out.append(("ntt_pair", kntt._pair_pass, kntt.ntt_pair_plain, (tw, tw_sh, group, ctx.q, s)))
     return out
 
 
@@ -77,6 +83,12 @@ def test_ntt_kernels_match_plain(cuda, batch, n, tile, forward):
         in_place = src.clone()
         kernel(in_place, in_place, *args)
         assert same(in_place, exp), (name, i, "in place")
+        # one word past a 16-byte boundary: the kernels' 4-byte access paths
+        buf = torch.empty(src.numel() + 1, dtype=src.dtype, device=cuda)
+        odd = buf[1:].view(src.shape)
+        odd.copy_(src)
+        kernel(odd, odd, *args)
+        assert same(odd, exp), (name, i, "misaligned")
 
 
 @pytest.mark.parametrize("batch,n,tile", NTT_SHAPES)
@@ -110,8 +122,8 @@ def test_polymul_matches_numpy_oracle(cuda, batch, n):
     kernels.reset_launch_counts()
     out = mm.to_numpy_u32(ops.polymul_ntt(a, b, ctx))
     counts = kernels.launch_counts()
-    assert counts["ntt_tile"] == 3 and counts["modmul"] == 1
-    assert counts["ntt_pair"] == 3 * ((n // min(8192, n)).bit_length() - 1)
+    plan = kntt.launch_plan(n)
+    assert counts == {"ntt_tile": 3 * plan["ntt_tile"], "ntt_pair": 3 * plan["ntt_pair"], "modmul": 1}
     rows = rng.choice(batch, size=min(4, batch), replace=False)
     assert np.array_equal(out[rows], ntt_core.polymul_negacyclic_np(a[rows], b[rows], ctx))
 
