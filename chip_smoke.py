@@ -19,10 +19,18 @@ Phases, one JSON line each:
               against the numpy stage loop on sampled rows and against the
               plain torch path on all rows, plus intt(ntt(x)) == x; every
               kernel must have launched during this phase;
-  5. timing   CUDA-event times per launch beside the bound (the larger of
+  5. rns      the RNS-CKKS path (`repro_torch.he`) at the logN = 16 level of
+              a chain, n=65536 with L=16 towers: `relin_key`, then
+              `ct_mul_relin` of two random ciphertexts and `rescale`,
+              bit-exact against the same ops on the CPU plain path (the key
+              copied over) on every tower, the keyswitch identity in the NTT
+              domain checked with the numpy stage loop on sampled towers,
+              and the launches of each drive equal to `rns_launches`;
+  6. timing   CUDA-event times per launch beside the bound (the larger of
               bytes over the memory rate and integer instructions over the
               issue rate), the plain version and a library call where one
-              exists, and the whole polymul_ntt.
+              exists, the whole polymul_ntt, and the RNS ops ct_mul,
+              keyswitch, ct_mul_relin and rescale beside their floors.
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises (exit code != 0).
 Imports nothing of `jax` or `repro`.
@@ -45,7 +53,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch import kernels  # noqa: E402
+from repro_torch import he, kernels  # noqa: E402
 from repro_torch.core import modmath as mm  # noqa: E402
 from repro_torch.core import ntt as ntt_core  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -77,6 +85,12 @@ CHECK_SHAPES = (
     (3, 128, 64), (2, 4096, 64), (2, 2048, 128), (4, 8192, 1024), (2, 16384, 2048),
     (1, 32768, 32768), (2, 65536, 32768),
 )
+#: (n, towers) of the rns phase: the logN = 16 level of an RNS-CKKS chain,
+#: 16 towers from rns_primes(65536, 16) (q from 2147352577 down, Q ~ 496 bits).
+RNS_SHAPE = (65536, 16)
+#: Towers of the rns phase checked against the numpy stage loop.
+RNS_SAMPLE = 4
+RNS_OPS = ("ct_mul", "keyswitch", "ct_mul_relin", "rescale")
 L2_BYTES = 50 * 2**20
 #: `torch.cuda._sleep` spins for clock cycles; the SM clock is at most
 #: ~2 GHz, so this many cycles last at least 1 ms.
@@ -151,16 +165,22 @@ def time_ms(fn, iters: int, reps: int = 5, warmup: int = 3) -> dict:
     events: `ms` is the median block with the launches queued behind a GPU
     sleep (device time), `spread` its fastest and slowest block; `wall_ms` is
     the median block as a caller sees it (no queue, so the larger of device
-    and host time); `host_ms` the host's time to enqueue one call."""
+    and host time); `host_ms` the host's time to enqueue one call.
+    `queued_host_ms` is the enqueue time per call behind the sleep: near
+    `sleep_ms / iters`, the stream's queue filled and the host waited on
+    the device, so `ms` then holds host time too."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     sleep_ms = 3 * iters * _events_ms(fn, iters)[1] + 1.0
-    queued = [_events_ms(fn, iters, sleep_ms)[0] for _ in range(reps)]
+    queued = [_events_ms(fn, iters, sleep_ms) for _ in range(reps)]
     plain = [_events_ms(fn, iters) for _ in range(reps)]
-    return {"ms": float(np.median(queued)), "spread": [min(queued), max(queued)],
-            "wall_ms": float(np.median([d for d, _ in plain])),
-            "host_ms": float(np.median([h for _, h in plain])), "calls": 2 * reps * iters}
+    device = [d for d, _ in queued]
+    wall = [d for d, _ in plain]
+    return {"ms": float(np.median(device)), "spread": [min(device), max(device)],
+            "wall_ms": float(np.median(wall)), "wall_spread": [min(wall), max(wall)],
+            "host_ms": float(np.median([h for _, h in plain])), "calls": 2 * reps * iters,
+            "sleep_ms": sleep_ms, "queued_host_ms": float(np.median([h for _, h in queued]))}
 
 
 # ---------------------------------------------------------------------------
@@ -270,6 +290,20 @@ def expected_launches(shapes=MAIN_SHAPES, tile=TILE) -> dict:
     return dict(counts)
 
 
+def rns_launches(n: int, towers: int, op: str = "ct_mul_relin", tile=TILE) -> dict:
+    """Launches of one call of a `he` op at (n, towers).  `ct_mul` and
+    `keyswitch` each make, per tower, one forward transform call, one
+    modmul call and one inverse call (2*L*T + L, T = `launch_plan`'s
+    launches per transform); `ct_mul_relin` is both; `rescale` launches
+    nothing.  `relin_key`: two `poly_mul_towers` (per tower a forward call,
+    a modmul call and an inverse call each) and the key's NTT (per tower one
+    forward call): 5*L*T + 2L."""
+    transforms, modmuls = {"ct_mul": (2, 1), "keyswitch": (2, 1), "ct_mul_relin": (4, 2),
+                           "rescale": (0, 0), "relin_key": (5, 2)}[op]
+    return {**{k: transforms * towers * v for k, v in kntt.launch_plan(n, tile).items()},
+            "modmul": modmuls * towers}
+
+
 def drive_main_path(rng, device, shapes=MAIN_SHAPES) -> dict:
     """`polymul_ntt` through the user's entry point on each shape, then
     the checks of its output; returns the launch counts of the drive."""
@@ -306,7 +340,111 @@ def drive_main_path(rng, device, shapes=MAIN_SHAPES) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: timing
+# phase 5: the RNS-CKKS path
+# ---------------------------------------------------------------------------
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _on_cpu(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32).cpu().view(torch.uint32)
+
+
+def drive_rns(device, n: int = RNS_SHAPE[0], towers: int = RNS_SHAPE[1],
+              sample: int = RNS_SAMPLE, seed: int = SEED) -> dict:
+    """`relin_key`, then `ct_mul_relin` and `rescale`, through the user's
+    entry points on `device`, each drive between a reset and a read of the
+    launch counts; then the checks of the results: every tower bit-exact
+    against the same ops on the CPU plain path (the key's b and a copied
+    over, its NTT form recomputed there and compared), and on `sample`
+    towers, with the numpy stage loop, ct_mul's products, the keyswitch
+    identity NTT(c0') + NTT(c1') NTT(s) = NTT(d2) NTT(s)^2 (c0', c1' the
+    keyswitch of d2), the relinearized sum and rescale's formula; and
+    intt(ntt(x)) == x on the towers."""
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    basis = he.make_basis(n, towers)
+    s = he.make_secret(basis, seed, device=device)
+    ct_a = he.random_ct(basis, seed + 1, device=device)
+    ct_b = he.random_ct(basis, seed + 2, device=device)
+    kernels.reset_launch_counts()
+    rlk = he.relin_key(basis, s, seed=seed + 3)
+    _sync(device)
+    key_launches = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    out = he.ct_mul_relin(basis, ct_a, ct_b, rlk)
+    res = he.rescale(basis, out)
+    _sync(device)
+    launches = kernels.launch_counts()
+    drive_s = time.perf_counter() - t0
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20 if on_card else None
+    if tuple(out.shape) != (2, towers, n) or tuple(res.shape) != (2, towers - 1, n) \
+            or out.dtype != torch.uint32 or res.dtype != torch.uint32:
+        raise AssertionError(f"ct_mul_relin / rescale gave {tuple(out.shape)} {tuple(res.shape)}")
+
+    # every tower against the CPU plain path on the same inputs and key
+    t0 = time.perf_counter()
+    cpu_key = he.KeySwitchKey(basis, _on_cpu(rlk.b), _on_cpu(rlk.a))
+    key_hat_ok = all(same(_on_cpu(g), c) for g, c in zip(rlk.hat, cpu_key.hat))
+    cpu_out = he.ct_mul_relin(basis, _on_cpu(ct_a), _on_cpu(ct_b), cpu_key)
+    cpu_res = he.rescale(basis, cpu_out)
+    out_np, res_np = mm.to_numpy_u32(out), mm.to_numpy_u32(res)
+    cpu_exact = {"key_hat": key_hat_ok,
+                 "ct_mul_relin": bool(np.array_equal(out_np, mm.to_numpy_u32(cpu_out))),
+                 "rescale": bool(np.array_equal(res_np, mm.to_numpy_u32(cpu_res)))}
+    cpu_s = time.perf_counter() - t0
+
+    # sampled towers against the numpy stage loop, independent of the kernels
+    t0 = time.perf_counter()
+    d = he.ct_mul(basis, ct_a, ct_b)
+    ks = he.keyswitch(basis, d.view(torch.int32)[2].view(torch.uint32), rlk)
+    back = he.ntt_towers(basis, he.ntt_towers(basis, ct_a), forward=False)
+    roundtrip = same(back, ct_a)
+    host = {k: mm.to_numpy_u32(v).astype(np.int64)
+            for k, v in (("s", s), ("a", ct_a), ("b", ct_b), ("d", d), ("ks", ks))}
+    picked = np.sort(np.random.default_rng(seed).choice(towers, size=min(sample, towers), replace=False))
+    identities = []
+    for i in picked.tolist():
+        ctx, q = basis.contexts[i], basis.moduli[i]
+        rows = np.stack([host["s"][i], *host["a"][:, i], *host["b"][:, i], *host["d"][:, i],
+                         *host["ks"][:, i]])
+        sh, a0, a1, b0, b1, d0, d1, d2, k0, k1 = ntt_core.ntt_forward_np(rows, ctx).astype(np.int64)
+        ct_mul_ok = (np.array_equal(d0, a0 * b0 % q) and np.array_equal(d2, a1 * b1 % q)
+                     and np.array_equal(d1, (a0 * b1 % q + a1 * b0 % q) % q))
+        keyswitch_ok = np.array_equal((k0 + k1 * sh % q) % q, d2 * sh % q * sh % q)
+        relin_ok = np.array_equal(out_np[:, i], (host["d"][:2, i] + host["ks"][:, i]) % q)
+        rescale_ok = None
+        if i < towers - 1:
+            inv = mm.inv_mod(basis.moduli[-1] % q, q)
+            delta = (out_np[:, i].astype(np.int64) - out_np[:, -1].astype(np.int64) % q) % q
+            rescale_ok = bool(np.array_equal(res_np[:, i], delta * inv % q))
+        identities.append({"tower": i, "q": q, "ct_mul": bool(ct_mul_ok),
+                           "keyswitch": bool(keyswitch_ok), "relinearize": bool(relin_ok),
+                           "rescale": rescale_ok})
+    identity_s = time.perf_counter() - t0
+
+    report = {"n": n, "towers": towers, "moduli": [basis.moduli[0], basis.moduli[-1]],
+              "modulus_bits": basis.modulus.bit_length(), "device": str(out.device),
+              "key_launches": key_launches, "launches": launches,
+              "expected_key_launches": rns_launches(n, towers, "relin_key"),
+              "expected_launches": rns_launches(n, towers, "ct_mul_relin"),
+              "cpu_bit_exact": cpu_exact, "towers_checked_vs_cpu": list(range(towers)),
+              "identity": identities, "roundtrip": roundtrip, "peak_mib": peak_mib,
+              "seconds": {"drive": drive_s, "cpu_path": cpu_s, "identity": identity_s}}
+    bad = [c for c in identities if not all(v in (True, None) for k, v in c.items()
+                                              if k not in ("tower", "q"))]
+    if not all(cpu_exact.values()) or bad or not roundtrip:
+        raise AssertionError(f"rns path wrong: {report}")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 6: timing
 # ---------------------------------------------------------------------------
 
 
@@ -388,6 +526,119 @@ def time_polymul(rng, device, batch: int, n: int, sm_mhz: float, tile: int = TIL
     }
 
 
+def transform_floor_ms(n: int, rows: int, sm_mhz: float, tile: int = TILE) -> float:
+    """Sum of the bounds of one transform's launches over `rows` rows of n:
+    each launch reads and writes the rows once, B1 also its twiddle rows
+    (2 x n words), each B2 launch its group's twiddles."""
+    t = kntt.resolve_tile(tile, n)
+    words = rows * n
+    total = bound(8 * words + 8 * n, words // 2 * (t.bit_length() - 1), sm_mhz)["bound_ms"]
+    for group in kntt.inter_groups(n, t, True):
+        total += bound(8 * words + 8 * sum(st.blocks for st in group), words // 2 * len(group),
+                       sm_mhz)["bound_ms"]
+    return total
+
+
+def rns_work(op: str, towers: int) -> dict:
+    """What one call of `op` does at L = `towers`, in rows of n residues:
+    `calls`, per tower the rows of each (forward call, inverse call, modmul
+    call); `elementwise`, the rows its torch passes read and write in all
+    (each pass's inputs read once and its output written once, as uint32)."""
+    big_l = towers
+    passes = {  # per tower: (rows read, rows written)
+        "move a, b tower-major": (4, 4), "pair the operands": (4, 8), "form d": (4, 3),
+        "move d back": (3, 3), "gather d2": (1, 1), "base-extend": (1, big_l),
+        "repeat the digits": (big_l, 2 * big_l), "sum over digits": (2 * big_l, 2),
+        "relinearize": (4, 2), "move back": (2, 2),
+    }
+    ct_mul = ["move a, b tower-major", "pair the operands", "form d"]
+    keyswitch = ["base-extend", "repeat the digits", "sum over digits"]
+    work = {
+        "ct_mul": ([(4, 3, 4)], ct_mul + ["move d back"]),
+        "keyswitch": ([(big_l, 2, 2 * big_l)], keyswitch + ["move back"]),
+        "ct_mul_relin": ([(4, 3, 4), (big_l, 2, 2 * big_l)],
+                         ct_mul + ["gather d2"] + keyswitch + ["relinearize", "move back"]),
+        "rescale": ([], []),
+    }
+    calls, used = work[op]
+    rows = big_l * sum(sum(passes[p]) for p in used)
+    if op == "rescale":  # reads the L towers, writes L - 1, of 2 components
+        rows = 2 * big_l + 2 * (big_l - 1)
+    return {"calls": calls, "elementwise": rows}
+
+
+def rns_floor_ms(op: str, n: int, towers: int, sm_mhz: float) -> dict:
+    """The floor of one call of `op`: the sum of its launches' bounds plus
+    its elementwise bytes over the memory rate."""
+    work = rns_work(op, towers)
+    kernels_ms = towers * sum(transform_floor_ms(n, fwd, sm_mhz) + transform_floor_ms(n, inv, sm_mhz)
+                              + bound(12 * mul * n, 0, sm_mhz)["bound_ms"]
+                              for fwd, inv, mul in work["calls"])
+    elementwise_bytes = 4 * work["elementwise"] * n
+    elementwise_ms = elementwise_bytes / HBM_BYTES_PER_S * 1e3
+    return {"floor_ms": kernels_ms + elementwise_ms, "kernels_bound_ms": kernels_ms,
+            "elementwise_bytes": elementwise_bytes, "elementwise_ms": elementwise_ms}
+
+
+def device_breakdown(fn, calls: int = 3) -> dict:
+    """Device time per call of `fn` by kernel, from torch.profiler's CUDA
+    activity over `calls` calls: each of the port's kernels by name, every
+    other device kernel (torch's elementwise passes) as `torch`.
+    `busy_ms` is their sum: the device's busy time, without the gaps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, count = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((k for k in KERNEL_INFO if f"{k}_kernel" in e.name), "torch")
+        us[name] += e.time_range.elapsed_us()
+        count[name] += 1
+    return {"busy_ms": sum(us.values()) / calls / 1e3,
+            "ms": {k: v / calls / 1e3 for k, v in us.items()},
+            "kernels_per_call": {k: v / calls for k, v in count.items()}}
+
+
+def time_rns(device, sm_mhz: float, n: int = RNS_SHAPE[0], towers: int = RNS_SHAPE[1],
+             seed: int = SEED) -> dict:
+    """Each RNS op per call at (n, towers): device time (one call per block,
+    queued behind a GPU sleep), wall and host time, its launches by kernel
+    (counted over one call and checked against `rns_launches`), its floor,
+    and the device's idle share of the wall time."""
+    basis = he.make_basis(n, towers)
+    s = he.make_secret(basis, seed, device=device)
+    rlk = he.relin_key(basis, s, seed=seed + 3)
+    ct_a = he.random_ct(basis, seed + 1, device=device)
+    ct_b = he.random_ct(basis, seed + 2, device=device)
+    c2 = he.random_poly(basis, seed + 4, device=device)
+    calls = {
+        "ct_mul": lambda: he.ct_mul(basis, ct_a, ct_b),
+        "keyswitch": lambda: he.keyswitch(basis, c2, rlk),
+        "ct_mul_relin": lambda: he.ct_mul_relin(basis, ct_a, ct_b, rlk),
+        "rescale": lambda: he.rescale(basis, ct_a),
+    }
+    out = {}
+    for op in RNS_OPS:
+        kernels.reset_launch_counts()
+        calls[op]()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        expected = rns_launches(n, towers, op)
+        if launches != expected:
+            raise AssertionError(f"{op}: launches {launches}, expected {expected}")
+        rec = time_ms(calls[op], 1, reps=7)
+        out[op] = {**rec, "launches": launches, **rns_floor_ms(op, n, towers, sm_mhz),
+                   "device_idle_share": 1 - rec["ms"] / rec["wall_ms"],
+                   "profile": device_breakdown(calls[op])}
+    return {"n": n, "towers": towers, "ops": out}
+
+
 def sass_summary(library: str) -> dict | None:
     """Per kernel of the built library, its SASS instruction count by
     opcode class, from `cuobjdump -sass` where the toolkit has it."""
@@ -446,12 +697,20 @@ def main() -> int:
     if launches != expected or any(v <= 0 for v in launches.values()):
         raise AssertionError(f"launch counts {launches}, expected {expected}")
 
+    rns = drive_rns(device)
+    emit({"phase": "rns", **rns})
+    if (rns["launches"] != rns["expected_launches"] or rns["key_launches"] != rns["expected_key_launches"]
+            or any(v <= 0 for v in rns["launches"].values())):
+        raise AssertionError(f"rns launch counts {rns['key_launches']} / {rns['launches']}, expected "
+                             f"{rns['expected_key_launches']} / {rns['expected_launches']}")
+
     sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     timing = {f"{b}x{n}": time_kernels(rng, device, b, n, sm_mhz) for b, n in MAIN_SHAPES}
     polymul = [time_polymul(rng, device, b, n, sm_mhz) for b, n in MAIN_SHAPES]
+    rns_timing = time_rns(device, sm_mhz)
     power = nvidia_smi("name,power.limit,power.draw,clocks.sm,temperature.gpu")
     emit({"phase": "timing", "card": smi, "kernels": timing, "polymul_ntt": polymul,
-          "nvidia_smi_after": power})
+          "rns": rns_timing, "nvidia_smi_after": power})
 
     big = timing[f"{MAIN_SHAPES[0][0]}x{MAIN_SHAPES[0][1]}"]
     rows = []
@@ -460,6 +719,8 @@ def main() -> int:
         rows.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": checked["max_abs_err"][kname],
+            "launches_by_path": {"polymul_ntt": launches[kname], "rns relin_key": rns["key_launches"][kname],
+                                 "rns ct_mul_relin + rescale": rns["launches"][kname]},
             "bit_exact": checked["max_abs_err"][kname] == 0,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import kernels
+from repro_torch import he, kernels
 from repro_torch.core import modmath as mm
 from repro_torch.core import ntt as ntt_core
 from repro_torch.kernels import modmul as kmod
@@ -134,3 +134,26 @@ def test_tables_on_another_device_raise(cuda):
     tw, tw_sh = ntt_core.device_tables(ctx, "cpu").for_direction(True)
     with pytest.raises(ValueError, match="is on"):
         kntt._tile_pass(x, torch.empty_like(x), tw, tw_sh, ntt_core.forward_stages(1024), 1024, Q)
+
+
+def test_rns_ct_mul_relin_and_rescale_match_cpu_path(cuda):
+    """ct_mul_relin + rescale at n = 4096, L = 4 on the card against the
+    same ops on the CPU plain path, the key copied over."""
+    basis = he.make_basis(4096, 4)
+    rlk = he.relin_key(basis, he.make_secret(basis, 0), seed=1)
+    a, b = he.random_ct(basis, 1), he.random_ct(basis, 2)
+    kernels.reset_launch_counts()
+    out = he.rescale(basis, he.ct_mul_relin(basis, a, b, rlk))
+    torch.cuda.synchronize()
+    plan = kntt.launch_plan(4096)
+    assert kernels.launch_counts() == {"ntt_tile": 16 * plan["ntt_tile"], "ntt_pair": 16 * plan["ntt_pair"],
+                                       "modmul": 8}
+    assert out.device.type == "cuda" and tuple(out.shape) == (2, 3, 4096)
+
+    def cpu(t):
+        return t.view(torch.int32).cpu().view(torch.uint32)
+
+    cpu_key = he.KeySwitchKey(basis, cpu(rlk.b), cpu(rlk.a))
+    exp = he.rescale(basis, he.ct_mul_relin(basis, cpu(a), cpu(b), cpu_key))
+    assert np.array_equal(mm.to_numpy_u32(out), mm.to_numpy_u32(exp))
+    assert np.array_equal(mm.to_numpy_u32(rlk.b_hat), mm.to_numpy_u32(cpu_key.b_hat))

@@ -28,7 +28,7 @@ def imported_roots(path: pathlib.Path) -> set[str]:
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"modmath.py", "ntt.py", "modmul.py", "ops.py", "backend.py", "chip_smoke.py"} <= names
+    assert {"modmath.py", "ntt.py", "modmul.py", "ops.py", "backend.py", "rns.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -44,6 +44,7 @@ def test_port_imports_with_jax_and_repro_blocked():
         "sys.modules['repro'] = None\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.backend\n"
         "import repro_torch.core.ntt, repro_torch.kernels.ref\n"
+        "import repro_torch.he, repro_torch.he.rns\n"
         "assert sys.modules['jax'] is None and sys.modules['repro'] is None\n"
         "assert not any(m.startswith(('jax.', 'repro.')) for m in sys.modules)\n"
         "print('ok')\n"
