@@ -26,7 +26,19 @@ Phases, one JSON line each:
               copied over) on every tower, the keyswitch identity in the NTT
               domain checked with the numpy stage loop on sampled towers,
               and the launches of each drive equal to `rns_launches`;
-  6. timing   CUDA-event times per launch beside the bound (the larger of
+  7. pimsys   the simulator stack (`repro_torch.pimsys`, `repro_torch.he.ops`):
+              (a) on the card, `PimSession(..., device="cuda")` over 4
+              channels x 4 banks compiles `CtMulRelinOp(n=65536, towers=16)`
+              and runs it with `time=False` on the rns phase's ciphertexts
+              and key; the value must be bit-exact with the rns phase's
+              `ct_mul_relin` and the launches equal `rns_launches`; its wall
+              time beside the direct `he.ct_mul_relin` call is the session
+              layer's host cost; (b) on the host, the golden records of
+              `tests/golden/engine_goldens.json` and the `he/mix/*/N=256`
+              latencies of `BENCH_he.json` replayed exactly, and the
+              modeled PIM latency of `CtMulRelinOp(n=4096, towers=8)`
+              (simulator output, not device time);
+  8. timing   CUDA-event times per launch beside the bound (the larger of
               bytes over the memory rate and integer instructions over the
               issue rate), the plain version and a library call where one
               exists, the whole polymul_ntt, and the RNS ops ct_mul,
@@ -56,6 +68,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch import he, kernels  # noqa: E402
 from repro_torch.core import modmath as mm  # noqa: E402
 from repro_torch.core import ntt as ntt_core  # noqa: E402
+from repro_torch.core.mapping import RowCentricMapper  # noqa: E402
+from repro_torch.core.pim_config import PimConfig  # noqa: E402
+from repro_torch.core.pimsim import BankTimer, analytic_multibank_bound  # noqa: E402
+from repro_torch.pimsys import (  # noqa: E402
+    ChannelController,
+    NttJob,
+    PimSession,
+    PolymulJob,
+    RequestScheduler,
+    ShardedNttPlan,
+)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import modmul as kmod  # noqa: E402
 from repro_torch.kernels import ntt as kntt  # noqa: E402
@@ -91,6 +114,14 @@ RNS_SHAPE = (65536, 16)
 #: Towers of the rns phase checked against the numpy stage loop.
 RNS_SAMPLE = 4
 RNS_OPS = ("ct_mul", "keyswitch", "ct_mul_relin", "rescale")
+#: The pimsys phase's devices: `benchmarks/he_ops.py`'s FULL_CFG (4 channels
+#: x 4 banks) for the full-width op, its QUICK_CFG for the BENCH_he.json points.
+PIMSYS_CFG = dict(num_channels=4, num_banks=4, param_cache_entries=16)
+PIMSYS_QUICK_CFG = dict(num_channels=2, num_banks=4, param_cache_entries=16)
+#: (n, towers) of the pimsys phase's timed simulation (host seconds ~20).
+PIMSYS_MODELED = (4096, 8)
+GOLDEN_PATH = os.path.join(ROOT, "tests", "golden", "engine_goldens.json")
+BENCH_HE_PATH = os.path.join(ROOT, "BENCH_he.json")
 L2_BYTES = 50 * 2**20
 #: `torch.cuda._sleep` spins for clock cycles; the SM clock is at most
 #: ~2 GHz, so this many cycles last at least 1 ms.
@@ -354,7 +385,7 @@ def _on_cpu(t: torch.Tensor) -> torch.Tensor:
 
 
 def drive_rns(device, n: int = RNS_SHAPE[0], towers: int = RNS_SHAPE[1],
-              sample: int = RNS_SAMPLE, seed: int = SEED) -> dict:
+              sample: int = RNS_SAMPLE, seed: int = SEED, keep: dict | None = None) -> dict:
     """`relin_key`, then `ct_mul_relin` and `rescale`, through the user's
     entry points on `device`, each drive between a reset and a read of the
     launch counts; then the checks of the results: every tower bit-exact
@@ -363,7 +394,8 @@ def drive_rns(device, n: int = RNS_SHAPE[0], towers: int = RNS_SHAPE[1],
     towers, with the numpy stage loop, ct_mul's products, the keyswitch
     identity NTT(c0') + NTT(c1') NTT(s) = NTT(d2) NTT(s)^2 (c0', c1' the
     keyswitch of d2), the relinearized sum and rescale's formula; and
-    intt(ntt(x)) == x on the towers."""
+    intt(ntt(x)) == x on the towers.  `keep`, where given, receives the
+    basis, ciphertexts, key and `ct_mul_relin` result for the pimsys phase."""
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -440,11 +472,173 @@ def drive_rns(device, n: int = RNS_SHAPE[0], towers: int = RNS_SHAPE[1],
                                               if k not in ("tower", "q"))]
     if not all(cpu_exact.values()) or bad or not roundtrip:
         raise AssertionError(f"rns path wrong: {report}")
+    if keep is not None:
+        keep.update(basis=basis, ct_a=ct_a, ct_b=ct_b, rlk=rlk, out=out)
     return report
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timing
+# phase 7: the simulator stack
+# ---------------------------------------------------------------------------
+
+
+def drive_pimsys(device, kept: dict, cfg: dict = PIMSYS_CFG, reps: int = 3) -> dict:
+    """(a) `CtMulRelinOp` at the rns phase's (n, towers) through
+    `PimSession(..., device=device)`: compile, then `run(..., time=False)`
+    on the rns phase's ciphertexts and key between a reset and a read of the
+    launch counts (checked by the caller against `rns_launches`: on the CPU
+    nothing launches); its value must equal the rns phase's `ct_mul_relin`
+    result bit for bit.  Then `reps` alternating wall times of the session
+    run and of the direct `he.ct_mul_relin` call: the session layer's host
+    cost per op."""
+    basis = kept["basis"]
+    n, towers = basis.n, basis.towers
+    sess = PimSession(PimConfig(**cfg), device=device)
+    t0 = time.perf_counter()
+    plan = sess.compile(he.CtMulRelinOp(n=n, towers=towers))
+    compile_s = time.perf_counter() - t0
+    if he.basis_for(plan.op) is not basis:
+        raise AssertionError("the plan's basis is not the rns phase's (memoized) basis")
+    args = (kept["ct_a"], kept["ct_b"], kept["rlk"])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = sess.run(plan, *args, time=False)
+    _sync(device)
+    run_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    expected = rns_launches(n, towers, "ct_mul_relin")
+    exact = r.value.device == kept["out"].device and same(r.value, kept["out"])
+    session_s, direct_s = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sess.run(plan, *args, time=False)
+        _sync(device)
+        session_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        he.ct_mul_relin(basis, *args)
+        _sync(device)
+        direct_s.append(time.perf_counter() - t0)
+    session_ms, direct_ms = float(np.median(session_s)) * 1e3, float(np.median(direct_s)) * 1e3
+    report = {"op": f"CtMulRelinOp(n={n}, towers={towers})", "cfg": cfg, "device": str(r.value.device),
+              "plan": dict(plan.placement), "compile_s": compile_s, "first_run_s": run_s,
+              "launches": launches, "expected_launches": expected,
+              "value_bit_exact_vs_rns_phase": exact,
+              "session_run_ms": session_ms, "direct_ct_mul_relin_ms": direct_ms,
+              "session_host_cost_ms": session_ms - direct_ms,
+              "session_run_ms_all": [t * 1e3 for t in session_s],
+              "direct_ms_all": [t * 1e3 for t in direct_s]}
+    if not exact or r.timing is not None:
+        raise AssertionError(f"pimsys session run wrong: {report}")
+    return report
+
+
+def golden_names(path: str = GOLDEN_PATH) -> list[str]:
+    """Every record of the engine goldens, by name."""
+    with open(path) as f:
+        g = json.load(f)
+    names = [f"single/n{r['n']}-nb{r['nb']}-f{int(r['forward'])}" for r in g["single"]]
+    names += [f"multibank/n{r['n']}-nb{r['nb']}-b{r['banks']}-{r['policy']}" for r in g["multibank"]]
+    names += [f"sharded/n{r['n']}-b{r['banks']}-f{int(r['forward'])}" for r in g["sharded"]]
+    return names + ["scheduler/0"]
+
+
+def replay_goldens(path: str = GOLDEN_PATH, names=None) -> dict:
+    """The named records of the engine goldens (all by default) replayed
+    through the port's simulator as `tests/test_engine.py` replays them
+    through the reference; every value compared with `==`."""
+    with open(path) as f:
+        g = json.load(f)
+    records = dict(zip(golden_names(path), g["single"] + g["multibank"] + g["sharded"] + g["scheduler"]))
+    names = list(records) if names is None else list(names)
+    bad = []
+    t0 = time.perf_counter()
+    for name in names:
+        rec, kind = records[name], name.split("/")[0]
+        if kind == "single":
+            cfg = PimConfig(num_buffers=rec["nb"])
+            cmds = RowCentricMapper(cfg, rec["n"], forward=rec["forward"]).commands()
+            r = BankTimer(cfg).simulate(cmds)
+            got = [len(cmds), r.ns, dict(sorted(r.stats.items()))]
+            want = [rec["commands"], rec["ns"], rec["stats"]]
+        elif kind == "multibank":
+            cfg = PimConfig(num_buffers=rec["nb"])
+            cmds = RowCentricMapper(cfg, rec["n"]).commands()
+            ctrl = ChannelController(cfg, policy=rec["policy"])
+            for i in range(rec["banks"]):
+                ctrl.enqueue(ctrl.add_bank(), cmds, job_id=i)
+            ctrl.drain()
+            got = [ctrl.makespan_ns, ctrl.bus_busy_ns, analytic_multibank_bound(rec["n"], rec["banks"], cfg)]
+            want = [rec["latency_ns"], rec["bus_busy_ns"], rec["analytic_ns"]]
+        elif kind == "sharded":
+            cfg = PimConfig(num_buffers=rec["nb"], num_channels=rec["channels"],
+                            num_banks=rec["banks_per_rank"])
+            r = ShardedNttPlan(cfg, rec["n"], rec["banks"], forward=rec["forward"]).simulate(baseline=False)
+            got = [r.latency_ns, r.local_ns, r.exchange_ns, r.xfer_atoms, r.xfer_hops]
+            want = [rec[k] for k in ("latency_ns", "local_ns", "exchange_ns", "xfer_atoms", "xfer_hops")]
+        else:
+            cfg = PimConfig(num_buffers=2, num_channels=2, num_banks=2)
+            jobs = [NttJob(512), PolymulJob(256), NttJob(1024), NttJob(512), PolymulJob(512), NttJob(256)]
+            closed = RequestScheduler(cfg).run_closed_loop(jobs)
+            open_ = RequestScheduler(cfg).run_open_loop(jobs, rate_per_us=0.1, seed=3)
+            got = [[float(x) for x in closed.done_ns], closed.makespan_ns,
+                   [float(x) for x in open_.done_ns], open_.makespan_ns]
+            want = [rec["closed_done_ns"], rec["closed_makespan_ns"], rec["open_done_ns"],
+                    rec["open_makespan_ns"]]
+        if got != want:
+            bad.append({"record": name, "got": got, "want": want})
+    return {"records": names, "mismatches": bad, "seconds": time.perf_counter() - t0}
+
+
+def he_mix_points(path: str = BENCH_HE_PATH, n: int = 256, levels=(2, 4, 8)) -> dict:
+    """The `he/mix/<op>/N=<n>/*` latency points of BENCH_he.json, made as
+    `benchmarks/he_ops.py` makes them (`t.latency_ns / 1e3` under its quick
+    config, banks = min(towers, 8)) and compared by name with `==`.  They
+    are the simulator's modeled PIM latencies, in µs, not device times."""
+    with open(path) as f:
+        committed = {p["name"]: p["us_per_call"] for p in json.load(f)["points"]}
+    sess = PimSession(PimConfig(**PIMSYS_QUICK_CFG))
+    ops = {"ct_mul": he.RlweCtMulOp, "keyswitch": he.KeySwitchOp, "rescale": he.RescaleOp,
+           "ct_mul_relin": he.CtMulRelinOp}
+    points, bad = {}, []
+    t0 = time.perf_counter()
+    for big_l in levels:
+        banks = min(big_l, sess.topo.total_banks)
+        for kind, cls in ops.items():
+            name = f"he/mix/{kind}/N={n}/L={big_l}/banks={banks}"
+            us = sess.run(sess.compile(cls(n=n, towers=big_l, banks=banks))).timing.latency_ns / 1e3
+            points[name] = us
+            if committed.get(name) != us:
+                bad.append({"point": name, "got": us, "committed": committed.get(name)})
+    return {"modeled_us": points, "mismatches": bad, "seconds": time.perf_counter() - t0}
+
+
+def modeled_latency(n: int = PIMSYS_MODELED[0], towers: int = PIMSYS_MODELED[1],
+                    cfg: dict = PIMSYS_CFG) -> dict:
+    """The simulator's modeled PIM latency of one `CtMulRelinOp(n, towers)`
+    (a timed run without values) and the host seconds it took."""
+    sess = PimSession(PimConfig(**cfg))
+    t0 = time.perf_counter()
+    t = sess.run(sess.compile(he.CtMulRelinOp(n=n, towers=towers))).timing
+    return {"op": f"CtMulRelinOp(n={n}, towers={towers})", "cfg": cfg,
+            "modeled_pim_latency_us": t.latency_ns / 1e3, "modeled_single_bank_us": t.single_ns / 1e3,
+            "speedup": t.speedup, "efficiency": t.efficiency, "banks": t.banks,
+            "host_seconds": time.perf_counter() - t0}
+
+
+def run_pimsys_host(goldens=None) -> dict:
+    """(b) the simulator's own numbers on this machine's host: the golden
+    records (all by default), the BENCH_he.json mix points and the modeled
+    latency; raises on any mismatch."""
+    replay = replay_goldens(names=goldens)
+    mix = he_mix_points()
+    if replay["mismatches"] or mix["mismatches"]:
+        raise AssertionError(f"simulator numbers differ: {replay['mismatches']} {mix['mismatches']}")
+    return {"goldens": replay, "bench_he_mix": mix, "modeled": modeled_latency(),
+            "note": "modeled_* and *_us latencies are simulator output (PIM model), not device time"}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: timing
 # ---------------------------------------------------------------------------
 
 
@@ -697,12 +891,23 @@ def main() -> int:
     if launches != expected or any(v <= 0 for v in launches.values()):
         raise AssertionError(f"launch counts {launches}, expected {expected}")
 
-    rns = drive_rns(device)
+    kept: dict = {}
+    rns = drive_rns(device, keep=kept)
     emit({"phase": "rns", **rns})
     if (rns["launches"] != rns["expected_launches"] or rns["key_launches"] != rns["expected_key_launches"]
             or any(v <= 0 for v in rns["launches"].values())):
         raise AssertionError(f"rns launch counts {rns['key_launches']} / {rns['launches']}, expected "
                              f"{rns['expected_key_launches']} / {rns['expected_launches']}")
+
+    t0 = time.perf_counter()
+    pim = {"card": drive_pimsys(device, kept)}
+    del kept
+    if pim["card"]["launches"] != pim["card"]["expected_launches"]:
+        raise AssertionError(f"pimsys launch counts {pim['card']['launches']}, expected "
+                             f"{pim['card']['expected_launches']}")
+    pim["host"] = run_pimsys_host()
+    pim["seconds"] = time.perf_counter() - t0
+    emit({"phase": "pimsys", **pim})
 
     sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     timing = {f"{b}x{n}": time_kernels(rng, device, b, n, sm_mhz) for b, n in MAIN_SHAPES}
@@ -720,7 +925,8 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": checked["max_abs_err"][kname],
             "launches_by_path": {"polymul_ntt": launches[kname], "rns relin_key": rns["key_launches"][kname],
-                                 "rns ct_mul_relin + rescale": rns["launches"][kname]},
+                                 "rns ct_mul_relin + rescale": rns["launches"][kname],
+                                 "pimsys CtMulRelinOp run": pim["card"]["launches"][kname]},
             "bit_exact": checked["max_abs_err"][kname] == 0,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -1,15 +1,16 @@
 """NTT execution backends (`NttBackend`): the port of `repro/kernels/backend.py`.
 
-Two lanes of the SAME transform contract sit behind one interface, so they
-can be differentially tested against each other (and against the
+Three lanes of the SAME transform contract sit behind one interface, so
+they can be differentially tested against each other (and against the
 reference package's lanes):
 
   reference  numpy stage loop (`core.ntt`) — the ground truth.
+  pim-sim    the paper's row-centric PIM bank: functional execution on
+             `FunctionalBank` via `core.mapping.pim_ntt` (host, numpy),
+             with the modeled `BankTimer` latency from a `PimSession`.
   cuda       `kernels.ops.ntt` / `intt` on a torch device: the CUDA kernels
              on the card (the default), their plain versions with
              `device="cpu"`.
-
-The reference package's `pim-sim` lane joins when the simulator is ported.
 
 Contract (shared by all lanes): uint32 arrays over the last axis,
 `forward=True` is natural in -> bit-reversed out, `forward=False` is
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch.core import modmath as mm
 from repro_torch.core import ntt as ntt_core
+from repro_torch.core.pim_config import PimConfig
 from repro_torch.kernels import ops
 
 DEFAULT_Q = mm.DEFAULT_Q
@@ -93,6 +95,37 @@ class ReferenceBackend(NttBackend):
         return fn(x, ctx)
 
 
+class PimSimBackend(NttBackend):
+    """The paper's row-centric bank: functional `FunctionalBank`
+    execution plus the `BankTimer` cycle model for latency rows."""
+
+    name = "pim-sim"
+    summary = "row-centric PIM bank (mapping.pim_ntt + BankTimer model)"
+
+    def __init__(self, cfg: PimConfig | None = None) -> None:
+        super().__init__()
+        self.cfg = cfg or PimConfig()
+        self._lat: dict[tuple[int, bool], float] = {}
+
+    def _ntt_2d(self, x, ctx, forward):
+        from repro_torch.core.mapping import pim_ntt
+
+        return np.stack([
+            pim_ntt(row, ctx, self.cfg, forward=forward)[0] for row in x
+        ])
+
+    def modeled_latency_ns(self, n: int, forward: bool = True) -> float | None:
+        key = (n, forward)
+        ns = self._lat.get(key)
+        if ns is None:
+            from repro_torch.pimsys.session import NttOp, PimSession
+
+            sess = PimSession(self.cfg)
+            ns = sess.run(sess.compile(NttOp(n, forward=forward))).timing.ns
+            self._lat[key] = ns
+        return ns
+
+
 class CudaBackend(NttBackend):
     """The CUDA kernel lane (`kernels.ops`), on the card by default."""
 
@@ -113,6 +146,7 @@ class CudaBackend(NttBackend):
 
 _REGISTRY = {
     ReferenceBackend.name: ReferenceBackend,
+    PimSimBackend.name: PimSimBackend,
     CudaBackend.name: CudaBackend,
 }
 
@@ -120,7 +154,8 @@ BACKEND_NAMES = tuple(_REGISTRY)
 
 
 def get_backend(name: str, **kwargs) -> NttBackend:
-    """Instantiate a backend by registry name ('reference', 'cuda');
+    """Instantiate a backend by registry name ('reference', 'pim-sim',
+    'cuda');
     raises ValueError for unknown names with the list of known ones in
     the message."""
     try:

@@ -28,7 +28,10 @@ def imported_roots(path: pathlib.Path) -> set[str]:
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"modmath.py", "ntt.py", "modmul.py", "ops.py", "backend.py", "rns.py", "chip_smoke.py"} <= names
+    assert {"modmath.py", "ntt.py", "modmul.py", "ops.py", "backend.py", "rns.py", "chip_smoke.py",
+            "mapping.py", "pimsim.py", "session.py"} <= names
+    he_files = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert "src/repro_torch/he/ops.py" in he_files
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -45,6 +48,7 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.kernels.ops, repro_torch.kernels.backend\n"
         "import repro_torch.core.ntt, repro_torch.kernels.ref\n"
         "import repro_torch.he, repro_torch.he.rns\n"
+        "import repro_torch.pimsys, repro_torch.he.ops, repro_torch.core.mapping\n"
         "assert sys.modules['jax'] is None and sys.modules['repro'] is None\n"
         "assert not any(m.startswith(('jax.', 'repro.')) for m in sys.modules)\n"
         "print('ok')\n"
