@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the port's polymul main path on one NVIDIA card and checks its kernels.
+"""Drives the port's main paths on one NVIDIA card and checks its kernels.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -43,6 +43,17 @@ Phases, one JSON line each:
               issue rate), the plain version and a library call where one
               exists, the whole polymul_ntt, and the RNS ops ct_mul,
               keyswitch, ct_mul_relin and rescale beside their floors.
+  9. lm       the LM serving path (`repro_torch.launch.serve`) on the card:
+              qwen3-4b (36 layers, d_model 2560, vocab 151936) and
+              mamba2-780m served at full size (batch 4, prompt 128, 32
+              tokens) with prefill ms, decode ms per token, tokens/s, peak
+              memory and the profiler's busy share of a decode step, and
+              prefill/decode checked against a full forward; qwen3-4b's full
+              width at 2 layers and the ten archs reduced, card against CPU
+              on the same weights; then the fastpath chain
+              (`evaluate_gang(backend="torch")`) over its grid, bit-identical
+              to `backend="numpy"`, and the `chain_fold` kernel against its
+              plain version, timed.  The LM path launches none of B1-B3.
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises (exit code != 0).
 Imports nothing of `jax` or `repro`.
@@ -50,6 +61,7 @@ Imports nothing of `jax` or `repro`.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import itertools
 import json
 import os
@@ -78,8 +90,16 @@ from repro_torch.pimsys import (  # noqa: E402
     PolymulJob,
     RequestScheduler,
     ShardedNttPlan,
+    evaluate_gang,
+    lower_commands,
+    param_beat_trace,
+    verify_stream,
 )
+from repro_torch.configs.registry import ARCH_NAMES, get_config  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import fold as kfold  # noqa: E402
+from repro_torch.launch.serve import make_inputs, serve, to_device  # noqa: E402
+from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.kernels import modmul as kmod  # noqa: E402
 from repro_torch.kernels import ntt as kntt  # noqa: E402
 
@@ -126,6 +146,28 @@ L2_BYTES = 50 * 2**20
 #: `torch.cuda._sleep` spins for clock cycles; the SM clock is at most
 #: ~2 GHz, so this many cycles last at least 1 ms.
 SLEEP_CYCLES_PER_MS = 2_000_000
+#: The lm phase's full-size serves: (arch, batch, prompt_len, gen).
+LM_SERVE = (("qwen3-4b", 4, 128, 32), ("mamba2-780m", 4, 128, 32))
+#: Prefill/decode against a full forward: `tests/test_archs.py`'s bound
+#: (rtol = atol = 0.2, set for its reduced configs).  The SSD's recurrent
+#: decode drifts from its chunked form in bf16 as layers are added, in the
+#: reference as in the port (tests/test_torch_serve.py::
+#: test_ssd_decode_drift_tracks_reference, mamba2-780m at full width on the
+#: CPU: the reference's max |decode - forward| is 0.0469 / 0.1016 / 0.1328
+#: at 4 / 16 / 32 layers).  mamba2-780m's 48 layers measured 0.242 on the
+#: card; its bound is 0.265, twice the reference's own drift at 32 layers.
+LM_CONSISTENCY_TOL = {"*": 0.2, "mamba2-780m": 0.265}
+#: Card against CPU on the same weights, max |card - cpu| / max |cpu| of
+#: the logits: twice the largest reading on the card (NVIDIA H100 80GB HBM3,
+#: 0.0135 for llama-3.2-vision; jamba 0.060, whose bf16 router logits tie
+#: exactly, so that one token's routing differs between the two devices).
+LM_CARD_TOL = {"*": 0.027, "jamba-1.5-large-398b": 0.12}
+#: tests/test_torch_pimsys.py's fastpath grid: (n, banks, entries, nb, pipelined).
+FASTPATH_GRID = ((64, 1, 0, 2, True), (64, 16, 128, 2, False), (128, 3, 4, 4, True),
+                 (128, 8, 0, 4, False), (256, 5, 128, 2, True), (256, 12, 4, 4, True),
+                 (256, 2, 32, 4, True), (256, 8, 32, 4, True))
+#: FP64 adds outside the tensor cores, per second (NVIDIA H100 SXM data sheet).
+FP64_FLOPS = 34e12
 KERNEL_INFO = {
     "ntt_tile": ("src/repro_torch/kernels/csrc/ntt.cu", "src/repro/kernels/ntt.py:77"),
     "ntt_pair": ("src/repro_torch/kernels/csrc/ntt.cu", "src/repro/kernels/ntt.py:127"),
@@ -833,6 +875,269 @@ def time_rns(device, sm_mhz: float, n: int = RNS_SHAPE[0], towers: int = RNS_SHA
     return {"n": n, "towers": towers, "ops": out}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the LM serving path and the fastpath chain
+# ---------------------------------------------------------------------------
+
+
+def _rel_err(ref: torch.Tensor, got: torch.Tensor) -> float:
+    """max |got - ref| over max |ref|, in float32 on the CPU."""
+    ref, got = ref.float().cpu(), got.float().cpu()
+    return float((ref - got).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def lm_consistency(model, inputs: dict, s: int) -> dict:
+    """`tests/test_archs.py`'s check on `model`: a full `forward` over the
+    first `s` tokens against `prefill` of the first s - 2 and a decode step
+    at s - 2, at the last two positions (rtol = atol = `LM_CONSISTENCY_TOL`),
+    all finite."""
+    tol = LM_CONSISTENCY_TOL.get(model.cfg.name, LM_CONSISTENCY_TOL["*"])
+    batch = dict(inputs, tokens=inputs["tokens"][:, :s])
+    with torch.inference_mode():
+        full, _ = model(batch)
+        logits_pre, caches = model.prefill(dict(batch, tokens=batch["tokens"][:, : s - 2]), cache_len=s)
+        logits_dec, _ = model.decode_step(batch["tokens"][:, s - 2], caches, s - 2)
+    pairs = {"prefill_vs_forward": (logits_pre, full[:, s - 3]), "decode_vs_forward": (logits_dec, full[:, s - 2])}
+    out = {"seq": s, "tol": tol, "finite": bool(torch.isfinite(full).all() and torch.isfinite(logits_pre).all()
+                                                and torch.isfinite(logits_dec).all())}
+    for name, (got, ref) in pairs.items():
+        got, ref = got.float(), ref.float()
+        excess = ((got - ref).abs() - (tol + tol * ref.abs())).max()
+        out[name] = {"max_abs_err": float((got - ref).abs().max()), "max_abs_ref": float(ref.abs().max()),
+                     "least_tol": float(((got - ref).abs() / (1 + ref.abs())).max()),
+                     "argmax_agrees": float((got.argmax(-1) == ref.argmax(-1)).float().mean()),
+                     "ok": bool(excess <= 0)}
+    if not (out["finite"] and all(out[k]["ok"] for k in pairs)):
+        raise AssertionError(f"prefill/decode disagree with forward: {out}")
+    return out
+
+
+def _kernel_class(name: str) -> str:
+    n = name.lower()
+    if any(k in n for k in ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_", "sm80_")):
+        return "matmul"
+    if "softmax" in n:
+        return "softmax"
+    if any(k in n for k in ("reduce", "norm")):
+        return "reduce"
+    if any(k in n for k in ("index", "gather", "scatter", "sort", "cat", "where")):
+        return "index / copy"
+    if "copy" in n:
+        return "cast / copy"
+    return "elementwise"
+
+
+def lm_profile(model, inputs: dict, prompt_len: int, steps: int = 4) -> dict:
+    """Device time per decode step by kernel class from torch.profiler's
+    CUDA activity over `steps` steps after a prefill (busy time, without
+    the gaps), and the host's time per step under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        logits, caches = model.prefill(inputs, cache_len=prompt_len + steps + 1)
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                logits, caches = model.decode_step(token, caches, prompt_len + i)
+                token = torch.argmax(logits, dim=-1).to(torch.int32)
+            host_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+    us, count = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        cls = _kernel_class(e.name)
+        us[cls] += e.time_range.elapsed_us()
+        count[cls] += 1
+    return {"busy_ms_per_step": sum(us.values()) / steps / 1e3,
+            "ms_per_step_by_class": {k: v / steps / 1e3 for k, v in us.most_common()},
+            "kernels_per_step": {k: v / steps for k, v in count.most_common()},
+            "host_ms_per_step_profiled": host_s / steps * 1e3}
+
+
+def drive_lm_serve(arch: str, batch: int, prompt_len: int, gen: int, device, seed: int = SEED,
+                   reduced: bool = False) -> dict:
+    """`serve(arch, reduced=reduced)` on `device` through the user's entry
+    point, between a reset and a read of the launch counts (the LM path
+    launches none of B1-B3); its prefill and per-step decode times, tokens/s,
+    peak memory; then the prefill/decode consistency over the served
+    sequence, and the device's busy share of a decode step."""
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve(arch, batch=batch, prompt_len=prompt_len, gen=gen, reduced=reduced, seed=seed, device=device)
+    serve_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    model, cfg = res["model"], res["model"].cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    if res["generated"].shape != (batch, gen) or (res["generated"] < 0).any() \
+            or (res["generated"] >= cfg.vocab_size).any():
+        raise AssertionError(f"{arch}: generated {res['generated'].shape}")
+    out = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": n_params, "batch": batch, "prompt_len": prompt_len, "gen": gen,
+           "device": res["device"], "launches": launches, "serve_s": serve_s,
+           "prefill_ms": res["prefill_s"] * 1e3, "decode_s": res["decode_s"], "tok_per_s": res["tok_per_s"],
+           "sample_tokens": res["generated"][0, :8].tolist()}
+    if on_card:
+        steps = res["step_ms"]
+        out.update(decode_ms_per_token=float(np.median(steps)), decode_ms_spread=[min(steps), max(steps)],
+                   peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    if any(launches.values()):
+        raise AssertionError(f"{arch}: the LM path launched {launches}")
+    with torch.inference_mode():  # prefill again, warm: serve's first call pays the libraries' set-up
+        _sync(device)
+        t0 = time.perf_counter()
+        model.prefill(res["inputs"], cache_len=prompt_len + gen)
+        _sync(device)
+        out["prefill_warm_ms"] = (time.perf_counter() - t0) * 1e3
+    served = np.concatenate([np.asarray(res["inputs"]["tokens"].cpu()), res["generated"][:, :-1]], axis=1)
+    inputs = dict(res["inputs"], tokens=torch.from_numpy(served).to(device))
+    out["consistency"] = lm_consistency(model, inputs, served.shape[1])
+    if on_card:
+        prof = lm_profile(model, res["inputs"], prompt_len)
+        prof["busy_share"] = prof["busy_ms_per_step"] / out["decode_ms_per_token"]
+        out["profile"] = prof
+    del res, model
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def card_vs_cpu(cfg, device, batch: int = 2, seq: int = 16, seed: int = SEED, tol: float | None = None) -> dict:
+    """One model on the CPU and the same weights on `device`: `forward`,
+    `prefill` of seq - 4 tokens and 4 decode steps teacher-forced by the
+    inputs, each side on its own caches; the largest |card - cpu| over the
+    largest |cpu| of each, against `tol` (`LM_CARD_TOL` by default)."""
+    tol = LM_CARD_TOL.get(cfg.name.removesuffix("-smoke"), LM_CARD_TOL["*"]) if tol is None else tol
+    cpu = Transformer.init(cfg, seed, "cpu")
+    card = Transformer(cfg, cpu.params).to(device)  # new parameters; the CPU model's stay
+    inputs = make_inputs(cfg, batch, seq, seed)
+    errs = {}
+    with torch.inference_mode():
+        for name, model in (("cpu", cpu), ("card", card)):
+            b = to_device(inputs, "cpu" if name == "cpu" else device)
+            logits, _ = model(b)
+            lp, caches = model.prefill(dict(b, tokens=b["tokens"][:, : seq - 4]), cache_len=seq)
+            outs = [logits, lp]
+            for i in range(4):
+                ld, caches = model.decode_step(b["tokens"][:, seq - 4 + i], caches, seq - 4 + i)
+                outs.append(ld)
+            errs[name] = outs
+    names = ["forward", "prefill"] + [f"decode{i}" for i in range(4)]
+    rel = {n: _rel_err(c, g) for n, c, g in zip(names, errs["cpu"], errs["card"])}
+    finite = all(bool(torch.isfinite(g).all()) for g in errs["card"])
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "tol": tol, "rel_err": rel, "max_rel_err": max(rel.values()), "finite": finite}
+    if not finite or out["max_rel_err"] > tol:
+        raise AssertionError(f"card and CPU disagree: {out}")
+    return out
+
+
+def fastpath_cases():
+    """(cfg, commands, param trace, banks, pipelined) of the fastpath grid."""
+    for n, banks, entries, nb, pipelined in FASTPATH_GRID:
+        cfg = PimConfig(num_buffers=nb, param_cache_entries=entries)
+        cmds = RowCentricMapper(cfg, n).commands()
+        trace = param_beat_trace(cfg, n, cmds) if entries else None
+        yield cfg, cmds, trace, banks, pipelined
+
+
+def drive_fastpath(device) -> dict:
+    """`evaluate_gang(..., backend="torch", device=device)` over the grid,
+    between a reset and a read of the chain kernel's count, each result
+    equal to `backend="numpy"` with `==` (starts, dones, end times,
+    counters), and one `verify_stream` through the torch backend."""
+    lowered = [(lower_commands(cfg, cmds, trace), cmds, cfg, trace, banks, pipelined)
+               for cfg, cmds, trace, banks, pipelined in fastpath_cases()]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = [evaluate_gang(lp, banks, pipelined=pipelined, backend="torch", device=device)
+           for lp, _, _, _, banks, pipelined in lowered]
+    torch_s = time.perf_counter() - t0
+    launches = dict(kfold.LAUNCHES)
+    t0 = time.perf_counter()
+    want = [evaluate_gang(lp, banks, pipelined=pipelined) for lp, _, _, _, banks, pipelined in lowered]
+    numpy_s = time.perf_counter() - t0
+    cases = []
+    for (lp, _, cfg, _, banks, pipelined), g, w in zip(lowered, got, want):
+        same_ = (g.makespan_ns == w.makespan_ns and g.bus_busy_ns == w.bus_busy_ns
+                 and np.array_equal(g.starts, w.starts) and np.array_equal(g.dones, w.dones)
+                 and np.array_equal(g.bank_end_ns, w.bank_end_ns) and g.counters == w.counters)
+        cases.append({"n_cmds": lp.n_cmds, "banks": banks, "pipelined": pipelined,
+                      "makespan_ns": g.makespan_ns, "bit_identical": bool(same_)})
+    _, cmds, cfg, trace, banks, pipelined = lowered[-1]
+    verified = verify_stream(cfg, cmds, banks, param_trace=trace, pipelined=pipelined,
+                             backend="torch", device=device).makespan_ns
+    out = {"cases": cases, "launches": launches, "torch_s": torch_s, "numpy_s": numpy_s,
+           "verify_stream_makespan_ns": verified}
+    if not all(c["bit_identical"] for c in cases) or verified != want[-1].makespan_ns:
+        raise AssertionError(f"fastpath torch backend differs from numpy: {out}")
+    return out
+
+
+def chain_inputs(rng, k: int, banks: int) -> tuple[np.ndarray, float]:
+    """The increments of one speculative block of K rounds x `banks`:
+    per round a param time, then the bus time, as `torch_chain` builds them."""
+    pn = rng.uniform(0.0, 60.0, k)
+    inc = np.empty(2 * k * banks)
+    inc[0::2] = np.repeat(pn, banks)
+    inc[1::2] = 1.25
+    return inc, float(rng.uniform(0.0, 1e5))
+
+
+def check_fold(rng, device) -> dict:
+    """`chain_fold` on the card against its plain version (on the CPU, where
+    `torch.cumsum` is a left fold) and `np.cumsum`, with `==`, at the main
+    block (K = 96 rounds x 16 banks) and at edge lengths."""
+    checks, err = [], 0.0
+    for k, banks in ((96, 16), (96, 8), (1, 1), (3, 1), (2, 5), (40, 3)):
+        inc, b0 = chain_inputs(rng, k, banks)
+        t = torch.from_numpy(inc)
+        got = kfold.left_fold(t.to(device), b0).cpu()
+        plain = kfold.left_fold_plain(t, b0)
+        ref = np.cumsum(np.concatenate([[b0], inc]))
+        err = max(err, float((got - plain).abs().max()))
+        checks.append({"rounds": k, "banks": banks, "length": len(inc) + 1,
+                       "bit_exact_vs_plain": bool(torch.equal(got, plain)),
+                       "bit_exact_vs_np_cumsum": bool(np.array_equal(got.numpy(), ref))})
+    empty = kfold.left_fold(torch.empty(0, dtype=torch.float64, device=device), 2.5).cpu()
+    checks.append({"length": 1, "bit_exact_vs_plain": bool(empty.tolist() == [2.5]),
+                   "bit_exact_vs_np_cumsum": bool(empty.tolist() == [2.5])})
+    if not all(c["bit_exact_vs_plain"] and c["bit_exact_vs_np_cumsum"] for c in checks):
+        raise AssertionError(f"chain_fold differs: {checks}")
+    return {"max_abs_err": err, "checks": checks}
+
+
+def time_fold(rng, device, k: int = 96, banks: int = 16) -> dict:
+    """`chain_fold` per launch at the main block, beside its bound, the plain
+    version (on the CPU, host clock) and `torch.cumsum` on the card (a
+    parallel scan: the same sums, reassociated)."""
+    inc, b0 = chain_inputs(rng, k, banks)
+    x = torch.from_numpy(inc).to(device)
+    rec = time_ms(lambda: kfold.left_fold(x, b0), 50)
+    cpu = torch.from_numpy(inc)
+    kfold.left_fold_plain(cpu, b0)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        kfold.left_fold_plain(cpu, b0)
+    plain_ms = (time.perf_counter() - t0) / 200 * 1e3
+    with_b0 = torch.cat([x.new_tensor([b0]), x])
+    lib = time_ms(lambda: torch.cumsum(with_b0, 0), 50)
+    lib_exact = bool(torch.equal(torch.cumsum(with_b0, 0).cpu(), kfold.left_fold_plain(cpu, b0)))
+    nbytes = 8 * len(inc) + 8 * (len(inc) + 1)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = len(inc) / FP64_FLOPS * 1e3
+    return {**rec, "plain_ms": plain_ms, "plain_device": "cpu", "library_ms": lib["ms"],
+            "library_call": "torch.cumsum(x, 0) on the card", "library_bit_exact": lib_exact,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "adds": len(inc), "rounds": k, "banks": banks,
+            "chain_ns_per_add": rec["ms"] * 1e6 / len(inc)}
+
+
 def sass_summary(library: str) -> dict | None:
     """Per kernel of the built library, its SASS instruction count by
     opcode class, from `cuobjdump -sass` where the toolkit has it."""
@@ -917,6 +1222,25 @@ def main() -> int:
     emit({"phase": "timing", "card": smi, "kernels": timing, "polymul_ntt": polymul,
           "rns": rns_timing, "nvidia_smi_after": power})
 
+    # phase 9: the LM serving path, then the fastpath chain
+    t_lm = time.perf_counter()
+    lm_serves = []
+    for spec in LM_SERVE:
+        lm_serves.append(drive_lm_serve(*spec, device))
+        emit({"phase": "lm", "part": "serve", **lm_serves[-1]})
+    wide = dataclasses.replace(get_config("qwen3-4b"), num_layers=2)
+    emit({"phase": "lm", "part": "full_width_card_vs_cpu", **card_vs_cpu(wide, device)})
+    reduced = [card_vs_cpu(get_config(a).reduced(capacity_factor=8.0), device) for a in ARCH_NAMES]
+    emit({"phase": "lm", "part": "reduced_card_vs_cpu", "archs": reduced})
+    fold_check = check_fold(rng, device)
+    fastpath = drive_fastpath(device)
+    fold_timing = time_fold(rng, device)
+    emit({"phase": "lm", "part": "fastpath", "check": fold_check, **fastpath, "timing": fold_timing})
+    if fastpath["launches"]["chain_fold"] <= 0:
+        raise AssertionError(f"the fastpath's torch backend launched no chain_fold: {fastpath['launches']}")
+    emit({"phase": "lm", "part": "done", "seconds": time.perf_counter() - t_lm,
+          "card": nvidia_smi("name,power.limit,power.draw,clocks.sm,temperature.gpu")})
+
     big = timing[f"{MAIN_SHAPES[0][0]}x{MAIN_SHAPES[0][1]}"]
     rows = []
     for kname, (source, replaces) in KERNEL_INFO.items():
@@ -926,12 +1250,23 @@ def main() -> int:
             "launches": launches[kname], "max_abs_err": checked["max_abs_err"][kname],
             "launches_by_path": {"polymul_ntt": launches[kname], "rns relin_key": rns["key_launches"][kname],
                                  "rns ct_mul_relin + rescale": rns["launches"][kname],
-                                 "pimsys CtMulRelinOp run": pim["card"]["launches"][kname]},
+                                 "pimsys CtMulRelinOp run": pim["card"]["launches"][kname],
+                                 "lm serve": sum(r["launches"][kname] for r in lm_serves)},
             "bit_exact": checked["max_abs_err"][kname] == 0,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": list(MAIN_SHAPES[0]),
         })
+    rows.append({
+        "name": "chain_fold", "route": "cuda", "source": "src/repro_torch/kernels/csrc/fold.cu",
+        "replaces": "src/repro/pimsys/fastpath/jax_backend.py:39 (_scan_chain, a lax.scan, not Pallas)",
+        "launches": fastpath["launches"]["chain_fold"], "max_abs_err": fold_check["max_abs_err"],
+        "launches_by_path": {"fastpath evaluate_gang grid": fastpath["launches"]["chain_fold"]},
+        "bit_exact": fold_check["max_abs_err"] == 0,
+        "ms": fold_timing["ms"], "plain_ms": fold_timing["plain_ms"], "bound_ms": fold_timing["bound_ms"],
+        "bound_by": fold_timing["bound_by"], "library_ms": fold_timing["library_ms"],
+        "shape": [fold_timing["adds"]],
+    })
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})

@@ -120,6 +120,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ntt_pair_launch.restype = I
     lib.modmul_launch.argtypes = [P, P, P, L, U, U, U, P]
     lib.modmul_launch.restype = I
+    lib.chain_fold_launch.argtypes = [P, P, L, ctypes.c_double, P]
+    lib.chain_fold_launch.restype = I
     lib.repro_cuda_error_string.argtypes = [I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

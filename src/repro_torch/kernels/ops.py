@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import modmath as mm
 from repro_torch.core.ntt import NttContext, make_context  # noqa: F401  (re-export)
+from repro_torch.device import resolve
 from repro_torch.kernels.modmul import modmul_cuda
 from repro_torch.kernels.ntt import ntt_cuda
 
@@ -33,9 +34,7 @@ def _place(x, device=None, dtype=np.uint32) -> torch.Tensor:
     """
     if isinstance(x, torch.Tensor) and device is None:
         return x
-    target = torch.device("cuda" if device is None else device)
-    if target.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the kernels' plain versions")
+    target = resolve(device)
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.uint32:  # moved through the int32 view every device copies
             return x.view(torch.int32).to(target).view(torch.uint32)

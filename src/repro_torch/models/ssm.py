@@ -1,0 +1,329 @@
+"""Mamba2 / SSD (state-space duality) blocks, chunked-scan form and
+O(1)-state decode form: the port of the JAX package's `repro/models/ssm.py`.
+
+Per chunk a dense (L x L) decay-masked attention-like product, plus an
+inter-chunk state recurrence (the reference's `lax.scan` over chunks, here
+a loop that emits the state entering each chunk).
+
+Shapes: x (B, S, H, P) heads x head_dim, B/C (B, S, G, N) groups x state,
+dt (B, S, H), A (H,) negative decay rates.
+"""
+from __future__ import annotations
+
+import itertools
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import COMPUTE_DTYPE, F32, _he, rmsnorm, rmsnorm_init, silu
+
+# ---------------------------------------------------------------------------
+# three-operand contractions in the reference's order
+# ---------------------------------------------------------------------------
+
+
+def _size(idx, sizes) -> int:
+    return math.prod(sizes[c] for c in idx)
+
+
+def contraction_order(sub: str, shapes) -> tuple[int, int]:
+    """The pair of operands `jnp.einsum` contracts first in the
+    three-operand `sub` at `shapes`.  `jnp.einsum`'s default
+    `optimize="auto"` takes opt_einsum's `optimal` path for three operands:
+    a depth-first search over pairwise contractions for the fewest flops,
+    the first of equal ones, with a cache of pair costs keyed by the two
+    operands' index sets.  The cache is kept here as it is there, since it
+    decides the order: a second-level contraction whose index sets equal a
+    first-level pair's reuses that pair's cost."""
+    ins, out = sub.split("->")
+    terms = tuple(frozenset(t) for t in ins.split(","))
+    sizes = {c: n for t, shape in zip(ins.split(","), shapes) for c, n in zip(t, shape)}
+    output = frozenset(out)
+    best = {"flops": math.inf, "path": None}
+    cache: dict = {}
+
+    def pair(inputs, remaining, i, j):
+        k1, k2 = inputs[i], inputs[j]
+        keep = output.union(*(inputs[r] for r in remaining - {i, j}))
+        either = k1 | k2
+        return either & keep, _size(either, sizes) * (1 + bool((k1 & k2) - keep))
+
+    def search(path, remaining, inputs, flops):
+        if len(remaining) == 1:
+            best["flops"], best["path"] = flops, path
+            return
+        for i, j in itertools.combinations(sorted(remaining), 2):
+            key = (inputs[i], inputs[j])
+            if key not in cache:
+                cache[key] = pair(inputs, remaining, i, j)
+            k12, cost = cache[key]
+            if flops + cost >= best["flops"]:
+                continue
+            search(path + ((i, j),), remaining - {i, j} | {len(inputs)}, inputs + (k12,), flops + cost)
+
+    search((), frozenset(range(len(terms))), terms, 0)
+    return best["path"][0]
+
+
+def einsum3(sub: str, *ops: torch.Tensor) -> torch.Tensor:
+    """A three-operand einsum as two pairwise bf16 contractions, in
+    `contraction_order`: the intermediate rounds to bf16 where the
+    reference's does."""
+    ins, out = sub.split("->")
+    terms = ins.split(",")
+    i, j = contraction_order(sub, [o.shape for o in ops])
+    o = 3 - i - j
+    keep = set(out) | set(terms[o])
+    mid = "".join(c for c in dict.fromkeys(terms[i] + terms[j]) if c in keep)
+    x = torch.einsum(f"{terms[i]},{terms[j]}->{mid}", ops[i], ops[j])
+    return torch.einsum(f"{mid},{terms[o]}->{out}", x, ops[o])
+
+
+# ---------------------------------------------------------------------------
+# SSD core
+# ---------------------------------------------------------------------------
+
+
+def _segsum_decay(a_cs):
+    """L[i, j] = exp(a_cs[i] - a_cs[j]) for i >= j else 0.  a_cs: (..., L)."""
+    li = a_cs[..., :, None]
+    lj = a_cs[..., None, :]
+    n = a_cs.shape[-1]
+    mask = torch.tril(torch.ones((n, n), dtype=torch.bool, device=a_cs.device))
+    return torch.where(mask, torch.exp(li - lj), 0.0)
+
+
+def _chunk_scan(init_state, chunk_states, a_total):
+    """The inter-chunk recurrence over dim 1 of `chunk_states` (b, c, ...)
+    and `a_total` (b, c, h-like): returns (final state, the state entering
+    each chunk, stacked on dim 1)."""
+    state = init_state
+    prev = []
+    for c in range(chunk_states.shape[1]):
+        prev.append(state)
+        decay = torch.exp(a_total[:, c])[..., None, None].to(COMPUTE_DTYPE)
+        state = state * decay + chunk_states[:, c]
+    return state, torch.stack(prev, dim=1)
+
+
+def ssd_chunked_grouped(xb, dA, Bg, Cg, chunk: int, init_state=None):
+    """Group-factored chunked SSD (`cfg.ssm_impl == "grouped"`).
+
+    xb: (B,S,H,P); dA: (B,S,H); Bg/Cg: (B,S,G,N) kept at group rank: the
+    C·B^T score matrices are computed once per group and shared by its H/G
+    heads; the decay mask is cast to bf16 before its product."""
+    b, s, h, p = xb.shape
+    g = Bg.shape[2]
+    n = Bg.shape[-1]
+    hh = h // g
+    nc = s // chunk
+    xc = xb.reshape(b, nc, chunk, g, hh, p)
+    dAc = dA.reshape(b, nc, chunk, g, hh).to(F32)
+    Bc = Bg.reshape(b, nc, chunk, g, n)
+    Cc = Cg.reshape(b, nc, chunk, g, n)
+
+    a_cs = torch.cumsum(dAc, dim=2)  # (b,c,l,g,hh)
+    a_total = a_cs[:, :, -1]  # (b,c,g,hh)
+
+    scores = torch.einsum("bclgn,bcsgn->bcgls", Cc, Bc)  # (b,c,g,l,s)
+    a_sw = torch.movedim(a_cs, 2, -1)  # (b,c,g,hh,l)
+    L = _segsum_decay(a_sw).to(COMPUTE_DTYPE)  # (b,c,g,hh,l,s)
+    y_diag = einsum3("bcgls,bcghls,bcsghp->bclghp", scores, L, xc)
+
+    decay_to_end = torch.exp(a_total[:, :, None] - a_cs).to(COMPUTE_DTYPE)  # (b,c,l,g,hh)
+    chunk_states = einsum3("bclgn,bclgh,bclghp->bcghpn", Bc, decay_to_end, xc)
+
+    if init_state is None:
+        init_state = torch.zeros((b, g, hh, p, n), dtype=COMPUTE_DTYPE, device=xb.device)
+    elif init_state.dim() == 4:  # (b,h,p,n) cache layout
+        init_state = init_state.reshape(b, g, hh, p, n)
+
+    final_state, prev_states = _chunk_scan(init_state, chunk_states, a_total)
+    state_decay = torch.exp(a_cs).to(COMPUTE_DTYPE)  # (b,c,l,g,hh)
+    y_off = einsum3("bclgn,bcghpn,bclgh->bclghp", Cc, prev_states, state_decay)
+
+    y = (y_diag + y_off).reshape(b, s, h, p)
+    return y, final_state.reshape(b, h, p, n)
+
+
+def ssd_chunked(xb, dA, Bh, Ch, chunk: int, init_state=None):
+    """Chunked SSD scan.
+
+    xb: (B,S,H,P) dt-scaled inputs; dA: (B,S,H); Bh/Ch: (B,S,H,N)
+    Returns (y (B,S,H,P), final_state (B,H,P,N)).
+    """
+    b, s, h, p = xb.shape
+    n = Bh.shape[-1]
+    nc = s // chunk
+    xc = xb.reshape(b, nc, chunk, h, p)
+    dAc = dA.reshape(b, nc, chunk, h).to(F32)
+    Bc = Bh.reshape(b, nc, chunk, h, n)
+    Cc = Ch.reshape(b, nc, chunk, h, n)
+
+    a_cs = torch.cumsum(dAc, dim=2)  # inclusive (b,c,l,h)
+    a_total = a_cs[:, :, -1, :]  # (b,c,h)
+
+    # intra-chunk ("diagonal") term
+    Ldt = _segsum_decay(torch.movedim(a_cs, -1, -2)).to(COMPUTE_DTYPE)  # (b,c,h,l,l)
+    scores = torch.einsum("bclhn,bcshn->bchls", Cc, Bc)  # (b,c,h,l,s)
+    y_diag = einsum3("bchls,bchls,bcshp->bclhp", scores, Ldt, xc)
+
+    # per-chunk end states
+    decay_to_end = torch.exp(a_total[:, :, None, :] - a_cs).to(COMPUTE_DTYPE)  # (b,c,l,h)
+    chunk_states = einsum3("bclhn,bclh,bclhp->bchpn", Bc, decay_to_end, xc)
+
+    # inter-chunk recurrence
+    if init_state is None:
+        init_state = torch.zeros((b, h, p, n), dtype=COMPUTE_DTYPE, device=xb.device)
+    final_state, prev_states = _chunk_scan(init_state, chunk_states, a_total)
+
+    # off-diagonal (carried state) term
+    state_decay = torch.exp(a_cs).to(COMPUTE_DTYPE)  # decay from chunk start
+    y_off = einsum3("bclhn,bchpn,bclh->bclhp", Cc, prev_states, state_decay)
+
+    y = (y_diag + y_off).reshape(b, s, h, p)
+    return y, final_state
+
+
+def ssd_decode_step(state, x_t, dA_t, B_t, C_t):
+    """One-token SSD update.  state (B,H,P,N); x_t (B,H,P); dA_t (B,H);
+    B_t/C_t (B,H,N).  Returns (y_t (B,H,P), new_state)."""
+    decay = torch.exp(dA_t.to(F32))[:, :, None, None].to(COMPUTE_DTYPE)
+    outer = x_t[..., :, None] * B_t[..., None, :]  # (B,H,P,N)
+    new_state = state * decay + outer
+    y = torch.einsum("bhpn,bhn->bhp", new_state, C_t)
+    return y, new_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 mixer block
+# ---------------------------------------------------------------------------
+
+
+def mamba_init(cfg: ModelConfig, lead: tuple, generator, device) -> dict:
+    """Mixer weights with leading dims `lead` (the stacked reps)."""
+    d = cfg.d_model
+    di = cfg.d_inner
+    h = cfg.ssm_heads
+    g, n, w = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv_width
+    xbc = di + 2 * g * n
+    proj = 2 * di + 2 * g * n + h  # z, x, B, C, dt
+    a_log = torch.log(torch.arange(1, h + 1, dtype=F32, device=device))
+    return {
+        "in_proj": _he((*lead, d, proj), d, generator, device),
+        "conv_w": _he((*lead, w, xbc), w, generator, device),
+        "conv_b": torch.zeros((*lead, xbc), dtype=F32, device=device),
+        "a_log": a_log.expand(*lead, h).clone(),
+        "skip_d": torch.ones((*lead, h), dtype=F32, device=device),
+        "dt_bias": torch.zeros((*lead, h), dtype=F32, device=device),
+        "norm": rmsnorm_init((*lead, di), device),
+        "out_proj": _he((*lead, di, d), di, generator, device),
+    }
+
+
+def _split_proj(cfg: ModelConfig, proj):
+    di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    z = proj[..., :di]
+    xbc = proj[..., di : 2 * di + 2 * g * n]
+    dt = proj[..., 2 * di + 2 * g * n :]
+    return z, xbc, dt
+
+
+def _split_xbc(cfg: ModelConfig, xbc):
+    di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    x = xbc[..., :di]
+    B = xbc[..., di : di + g * n]
+    C = xbc[..., di + g * n :]
+    return x, B, C
+
+
+def _causal_conv(xbc, conv_w, conv_b, history=None):
+    """Depthwise causal conv over time; xbc (B, S, Cdim), conv_w (W, Cdim).
+
+    history: (B, W-1, Cdim) left context (decode/prefill continuity).
+    The taps are summed in order, each product and sum in bf16."""
+    w = conv_w.shape[0]
+    if history is None:
+        history = torch.zeros((xbc.shape[0], w - 1, xbc.shape[-1]), dtype=xbc.dtype, device=xbc.device)
+    xp = torch.cat([history, xbc], dim=1)
+    s = xbc.shape[1]
+    out = xp[:, 0:s, :] * conv_w[0].to(xbc.dtype)
+    for i in range(1, w):
+        out = out + xp[:, i : i + s, :] * conv_w[i].to(xbc.dtype)
+    return out + conv_b.to(xbc.dtype), xp[:, -(w - 1) :, :]
+
+
+def _expand_groups(cfg: ModelConfig, bc):
+    """(B, S, G*N) -> per-head (B, S, H, N) by repeating groups."""
+    b, s = bc.shape[:2]
+    g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    return torch.repeat_interleave(bc.reshape(b, s, g, n), h // g, dim=2)
+
+
+def _softplus(x):
+    """`jax.nn.softplus`: log(1 + exp(x)) as logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def mamba_forward(p, cfg: ModelConfig, x, init_state=None, conv_history=None):
+    """Full-sequence mixer.  x: (B, S, D) bf16.  Returns (y, (conv_hist, state)).
+
+    Sequences are padded (at the end) to a chunk multiple; padded steps
+    have dt forced to 0, so they neither decay nor feed the state: the
+    returned state is exactly the post-last-real-token state.
+    """
+    b, s, d = x.shape
+    h_heads, hp = cfg.ssm_heads, cfg.ssm_head_dim
+    proj = x @ p["in_proj"].to(COMPUTE_DTYPE)
+    z, xbc, dt = _split_proj(cfg, proj)
+    xbc, conv_hist = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_history)
+    xbc = silu(xbc)
+    xi, B, C = _split_xbc(cfg, xbc)
+    dt = _softplus(dt.to(F32) + p["dt_bias"])  # (B,S,H)
+    pad = (-s) % cfg.ssm_chunk
+    if pad:  # dt = 0 -> identity step
+        dt, xi, B, C = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (dt, xi, B, C))
+    sp = s + pad
+    A = -torch.exp(p["a_log"])  # (H,)
+    dA = dt * A  # (B,Sp,H)
+    xh = xi.reshape(b, sp, h_heads, hp)
+    xb = xh * dt[..., None].to(COMPUTE_DTYPE)
+    if cfg.ssm_impl == "grouped":
+        g, n = cfg.ssm_groups, cfg.ssm_state
+        y, state = ssd_chunked_grouped(
+            xb, dA, B.reshape(b, sp, g, n), C.reshape(b, sp, g, n), cfg.ssm_chunk, init_state,
+        )
+    else:
+        Bh = _expand_groups(cfg, B)
+        Ch = _expand_groups(cfg, C)
+        y, state = ssd_chunked(xb, dA, Bh, Ch, cfg.ssm_chunk, init_state)
+    y = y[:, :s]
+    xh = xh[:, :s]
+    y = y + xh * p["skip_d"][None, None, :, None].to(COMPUTE_DTYPE)
+    y = y.reshape(b, s, cfg.d_inner)
+    y = rmsnorm(y * silu(z), p["norm"], cfg.norm_eps)
+    return y @ p["out_proj"].to(COMPUTE_DTYPE), (conv_hist, state)
+
+
+def mamba_decode(p, cfg: ModelConfig, x, conv_history, state):
+    """One-token mixer.  x (B, 1, D).  Returns (y, (conv_hist, state))."""
+    b = x.shape[0]
+    h_heads, hp = cfg.ssm_heads, cfg.ssm_head_dim
+    proj = x @ p["in_proj"].to(COMPUTE_DTYPE)
+    z, xbc, dt = _split_proj(cfg, proj)
+    xbc, conv_hist = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_history)
+    xbc = silu(xbc)
+    xi, B, C = _split_xbc(cfg, xbc)
+    dt = _softplus(dt.to(F32) + p["dt_bias"])[:, 0]  # (B,H)
+    A = -torch.exp(p["a_log"])
+    dA = dt * A  # (B,H)
+    xh = xi.reshape(b, h_heads, hp)
+    xb = xh * dt[..., None].to(COMPUTE_DTYPE)
+    Bh = _expand_groups(cfg, B)[:, 0]  # (B,H,N)
+    Ch = _expand_groups(cfg, C)[:, 0]
+    y, state = ssd_decode_step(state, xb, dA, Bh, Ch)
+    y = y + xh * p["skip_d"][None, :, None].to(COMPUTE_DTYPE)
+    y = y.reshape(b, 1, cfg.d_inner)
+    y = rmsnorm(y * silu(z), p["norm"], cfg.norm_eps)
+    return y @ p["out_proj"].to(COMPUTE_DTYPE), (conv_hist, state)

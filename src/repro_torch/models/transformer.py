@@ -1,0 +1,375 @@
+"""Pattern-repeated decoder LM covering all assigned families: the port of
+the JAX package's `repro/models/transformer.py`, serving half.
+
+The model is a loop over `cfg.reps` repetitions of `cfg.pattern()`; every
+pattern position has its own stacked parameter dict (leading dim = reps),
+as in the reference, whose `lax.scan` over reps becomes a loop over `r`
+that indexes the stacks.
+
+Entry points (functions over a param dict, and the same as methods of
+`Transformer`, an `nn.Module` that holds the dict):
+  init_params(cfg, generator, device)          parameter dict
+  forward(params, cfg, batch)                  full-seq logits + aux
+  prefill(params, cfg, batch, cache_len)       logits at last pos + caches
+  decode_step(params, cfg, token, caches, pos) one-token serve step
+  encoder_forward(params, cfg, frames)         whisper encoder (conv stub in)
+
+Caches are lists of dicts aligned with the stacked params: leading dim = reps.
+  attn  : {"k": (reps,B,L,KV,hd), "v": ...}
+  mamba : {"conv": (reps,B,W-1,xbc), "state": (reps,B,H,P,N)}
+  cross : {"ck": (reps,B,S_enc,KV,hd), "cv": ...}  (precomputed at prefill)
+`decode_step` writes them in place and returns them (the reference
+returns new, donated ones).  Run under `torch.inference_mode()`.  The
+entry points sum bf16 products in f32 (`layers.f32_accumulation`).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve
+from repro_torch.models import layers as L
+from repro_torch.models import ssm
+
+COMPUTE_DTYPE = L.COMPUTE_DTYPE
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _block_init(cfg: ModelConfig, mixer: str, ffn: str, lead: tuple, generator, device) -> dict:
+    p = {"ln1": L.rmsnorm_init((*lead, cfg.d_model), device)}
+    if mixer in ("attn", "attn_nc", "cross"):
+        p["mixer"] = L.attn_init(cfg, lead, generator, device)
+    elif mixer == "attn_cross":
+        p["mixer"] = L.attn_init(cfg, lead, generator, device)
+        p["ln_cross"] = L.rmsnorm_init((*lead, cfg.d_model), device)
+        p["cross"] = L.attn_init(cfg, lead, generator, device)
+    elif mixer == "mamba":
+        p["mixer"] = ssm.mamba_init(cfg, lead, generator, device)
+    else:  # pragma: no cover
+        raise ValueError(mixer)
+    if ffn == "mlp":
+        p["ln2"] = L.rmsnorm_init((*lead, cfg.d_model), device)
+        p["ffn"] = L.mlp_init(cfg, lead, generator, device)
+    elif ffn == "moe":
+        p["ln2"] = L.rmsnorm_init((*lead, cfg.d_model), device)
+        p["ffn"] = L.moe_init(cfg, lead, generator, device)
+    return p
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+    """Random parameters in the reference's layout, shapes and scales
+    (embed x 0.02, He-normal weights, ones, zeros, a_log = log(1..H)),
+    drawn from `generator` on `device` (other values than jax's PRNG)."""
+    params = {
+        "embed": torch.randn((cfg.vocab_size, cfg.d_model), generator=generator, device=device) * 0.02,
+        "final_norm": L.rmsnorm_init(cfg.d_model, device),
+        "blocks": [_block_init(cfg, mixer, ffn, (cfg.reps,), generator, device)
+                   for mixer, ffn in cfg.pattern()],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L._he((cfg.d_model, cfg.vocab_size), cfg.d_model, generator, device)
+    if cfg.encoder_layers:  # whisper-style encoder over precomputed frames
+        params["encoder"] = {
+            "blocks": _block_init(cfg, "attn_nc", "mlp", (cfg.encoder_layers,), generator, device),
+            "final_norm": L.rmsnorm_init(cfg.d_model, device),
+        }
+    if cfg.param_dtype != "float32":
+        dt = getattr(torch, cfg.param_dtype)
+        params = _tree_map(lambda x: x.to(dt), params)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# block application (full sequence)
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(cfg, mixer, ffn, p, x, positions, enc_out):
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=L.F32, device=x.device)
+    if mixer in ("attn", "attn_nc"):
+        out = L.attention(p["mixer"], cfg, h, positions, causal=mixer == "attn")
+    elif mixer == "cross":
+        out = L.attention(p["mixer"], cfg, h, positions, kv=enc_out)
+    elif mixer == "attn_cross":
+        out = L.attention(p["mixer"], cfg, h, positions, causal=True)
+        x = x + out
+        h2 = L.rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+        out = L.attention(p["cross"], cfg, h2, positions, kv=enc_out)
+    elif mixer == "mamba":
+        out, _ = ssm.mamba_forward(p["mixer"], cfg, h)
+    else:  # pragma: no cover
+        raise ValueError(mixer)
+    x = x + out
+    if ffn != "none":
+        h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        if ffn == "moe":
+            out, aux = L.moe(p["ffn"], cfg, h)
+        else:
+            out = L.mlp(p["ffn"], h)
+        x = x + out
+    return x, aux
+
+
+def _rep_slice(stack, r):
+    """Rep `r`'s parameter (or cache) slice of a stacked dict: views."""
+    return {k: _rep_slice(v, r) if isinstance(v, dict) else v[r] for k, v in stack.items()}
+
+
+def _positions(b, s, device):
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+def _head(params):
+    head = params.get("lm_head")
+    return params["embed"].T if head is None else head
+
+
+# ---------------------------------------------------------------------------
+# public: scoring forward
+# ---------------------------------------------------------------------------
+
+
+@L.f32_accumulation()
+def encoder_forward(params, cfg: ModelConfig, frames):
+    """frames: (B, S_enc, D) precomputed conv-frontend embeddings (stub)."""
+    x = frames.to(COMPUTE_DTYPE)
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+    enc = params["encoder"]
+    for r in range(cfg.encoder_layers):
+        x, _ = _apply_block(cfg, "attn_nc", "mlp", _rep_slice(enc["blocks"], r), x, positions, None)
+    return L.rmsnorm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _enc_out(params, cfg, batch):
+    if cfg.encoder_layers:
+        return encoder_forward(params, cfg, batch["frames"])
+    if cfg.num_image_tokens:
+        return batch["image_embeds"].to(COMPUTE_DTYPE)
+    return None
+
+
+@L.f32_accumulation()
+def forward(params, cfg: ModelConfig, batch):
+    """batch: tokens (B,S) [+ image_embeds | frames].  Returns (logits, aux)."""
+    tokens = batch["tokens"]
+    x = params["embed"][tokens].to(COMPUTE_DTYPE)
+    positions = _positions(*tokens.shape, tokens.device)
+    enc_out = _enc_out(params, cfg, batch)
+    aux = torch.zeros((), dtype=L.F32, device=x.device)
+    for r in range(cfg.reps):
+        for i, (mixer, ffn) in enumerate(cfg.pattern()):
+            x, a = _apply_block(cfg, mixer, ffn, _rep_slice(params["blocks"][i], r), x, positions, enc_out)
+            aux = aux + a
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x @ _head(params).to(COMPUTE_DTYPE), aux
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + one-token decode
+# ---------------------------------------------------------------------------
+
+
+def _init_cache_slice(cfg: ModelConfig, mixer, lead, cache_len, enc_len, device):
+    kv, hd = cfg.num_kv_heads, cfg.hd
+
+    def zeros(*shape):
+        return torch.zeros((*lead, *shape), dtype=COMPUTE_DTYPE, device=device)
+
+    if mixer in ("attn", "attn_nc"):
+        return {"k": zeros(cache_len, kv, hd), "v": zeros(cache_len, kv, hd)}
+    if mixer in ("cross", "attn_cross"):
+        c = {"ck": zeros(enc_len, kv, hd), "cv": zeros(enc_len, kv, hd)}
+        if mixer == "attn_cross":
+            c["k"] = zeros(cache_len, kv, hd)
+            c["v"] = zeros(cache_len, kv, hd)
+        return c
+    if mixer == "mamba":
+        return {
+            "conv": zeros(cfg.ssm_conv_width - 1, cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state),
+            "state": zeros(cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+        }
+    raise ValueError(mixer)  # pragma: no cover
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, enc_len: int = 0, device=None):
+    """Zeroed caches, stacked (reps, ...) per pattern position, on `device`
+    (the card when None)."""
+    dev = resolve(device)
+    return [_init_cache_slice(cfg, mixer, (cfg.reps, batch), cache_len, max(enc_len, 1), dev)
+            for mixer, _ in cfg.pattern()]
+
+
+def _prefill_block(cfg, mixer, ffn, p, x, positions, enc_out, cache):
+    """Like `_apply_block`, but fills rep r's cache slice `cache` in place."""
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    s = x.shape[1]
+    if mixer in ("attn", "attn_nc", "attn_cross"):
+        q, k, v = L._project_qkv(p["mixer"], cfg, h, h)
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
+        out = L._sdpa(q, k, v, cfg, causal=mixer != "attn_nc")
+        out = out.reshape(*x.shape[:-1], -1) @ p["mixer"]["wo"].to(COMPUTE_DTYPE)
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+        if mixer == "attn_cross":
+            x = x + out
+            h2 = L.rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+            _, ck, cv = L._project_qkv(p["cross"], cfg, h2, enc_out)
+            cache["ck"].copy_(ck)
+            cache["cv"].copy_(cv)
+            q2 = L._project_q(p["cross"], cfg, h2)
+            out = L._sdpa(q2, ck, cv, cfg, causal=False)
+            out = out.reshape(*x.shape[:-1], -1) @ p["cross"]["wo"].to(COMPUTE_DTYPE)
+    elif mixer == "cross":
+        _, ck, cv = L._project_qkv(p["mixer"], cfg, h, enc_out)
+        cache["ck"].copy_(ck)
+        cache["cv"].copy_(cv)
+        q = L._project_q(p["mixer"], cfg, h)
+        out = L._sdpa(q, ck, cv, cfg, causal=False)
+        out = out.reshape(*x.shape[:-1], -1) @ p["mixer"]["wo"].to(COMPUTE_DTYPE)
+    elif mixer == "mamba":
+        out, (conv_hist, state) = ssm.mamba_forward(p["mixer"], cfg, h)
+        cache["conv"].copy_(conv_hist)
+        cache["state"].copy_(state)
+    else:  # pragma: no cover
+        raise ValueError(mixer)
+    x = x + out
+    if ffn != "none":
+        h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        out = L.moe(p["ffn"], cfg, h)[0] if ffn == "moe" else L.mlp(p["ffn"], h)
+        x = x + out
+    return x
+
+
+@L.f32_accumulation()
+def prefill(params, cfg: ModelConfig, batch, cache_len: int):
+    """Run the prompt, return (last-position logits, caches)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = params["embed"][tokens].to(COMPUTE_DTYPE)
+    positions = _positions(b, s, tokens.device)
+    enc_out = _enc_out(params, cfg, batch)
+    enc_len = 0 if enc_out is None else enc_out.shape[1]
+    caches = init_cache(cfg, b, cache_len, enc_len, device=x.device)
+    for r in range(cfg.reps):
+        for i, (mixer, ffn) in enumerate(cfg.pattern()):
+            x = _prefill_block(cfg, mixer, ffn, _rep_slice(params["blocks"][i], r), x, positions,
+                               enc_out, _rep_slice(caches[i], r))
+    x = L.rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    logits = x @ _head(params).to(COMPUTE_DTYPE)
+    return logits[:, 0], caches
+
+
+def _decode_block(cfg, mixer, ffn, p, x, cache, pos):
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    b = x.shape[0]
+    if mixer in ("attn", "attn_nc", "attn_cross"):
+        out, _, _ = L.attention_decode(p["mixer"], cfg, h, cache["k"], cache["v"], pos)
+        if mixer == "attn_cross":
+            x = x + out
+            h2 = L.rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+            q = L._project_q(p["cross"], cfg, h2)
+            outc = L._sdpa(q, cache["ck"], cache["cv"], cfg, causal=False)
+            out = outc.reshape(b, 1, -1) @ p["cross"]["wo"].to(COMPUTE_DTYPE)
+    elif mixer == "cross":
+        q = L._project_q(p["mixer"], cfg, h)
+        outc = L._sdpa(q, cache["ck"], cache["cv"], cfg, causal=False)
+        out = outc.reshape(b, 1, -1) @ p["mixer"]["wo"].to(COMPUTE_DTYPE)
+    elif mixer == "mamba":
+        out, (conv, state) = ssm.mamba_decode(p["mixer"], cfg, h, cache["conv"], cache["state"])
+        cache["conv"].copy_(conv)
+        cache["state"].copy_(state)
+    else:  # pragma: no cover
+        raise ValueError(mixer)
+    x = x + out
+    if ffn != "none":
+        h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        out = L.moe(p["ffn"], cfg, h)[0] if ffn == "moe" else L.mlp(p["ffn"], h)
+        x = x + out
+    return x
+
+
+@L.f32_accumulation()
+def decode_step(params, cfg: ModelConfig, token, caches, pos: int):
+    """token: (B,) int; pos: int (next position to fill).
+
+    Returns (logits (B, V), caches), the caches updated in place."""
+    x = params["embed"][token][:, None, :].to(COMPUTE_DTYPE)
+    for r in range(cfg.reps):
+        for i, (mixer, ffn) in enumerate(cfg.pattern()):
+            x = _decode_block(cfg, mixer, ffn, _rep_slice(params["blocks"][i], r), x,
+                              _rep_slice(caches[i], r), pos)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x @ _head(params).to(COMPUTE_DTYPE))[:, 0]
+    return logits, caches
+
+
+# ---------------------------------------------------------------------------
+# the module
+# ---------------------------------------------------------------------------
+
+
+class _Tree(nn.Module):
+    """A nested dict / list of tensors as submodules and (frozen) parameters,
+    under the dict's own names."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self._is_list = isinstance(tree, (list, tuple))
+        items = enumerate(tree) if self._is_list else tree.items()
+        for k, v in items:
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(str(k), nn.Parameter(v, requires_grad=False))
+            else:
+                self.add_module(str(k), _Tree(v))
+
+    def value(self):
+        out = {k: p for k, p in self._parameters.items()}
+        out.update({k: m.value() for k, m in self._modules.items()})
+        if self._is_list:
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+
+class Transformer(nn.Module):
+    """The LM as an `nn.Module`: `params` (a dict in the reference's layout)
+    held as frozen parameters under the reference's names, and the entry
+    points as methods."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.tree = _Tree(params)
+
+    @classmethod
+    def init(cls, cfg: ModelConfig, seed: int, device) -> "Transformer":
+        """Random parameters drawn on `device` from a generator seeded with `seed`."""
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return cls(cfg, init_params(cfg, gen, device))
+
+    @property
+    def params(self) -> dict:
+        return self.tree.value()
+
+    def forward(self, batch):
+        return forward(self.params, self.cfg, batch)
+
+    def prefill(self, batch, cache_len: int):
+        return prefill(self.params, self.cfg, batch, cache_len)
+
+    def decode_step(self, token, caches, pos: int):
+        return decode_step(self.params, self.cfg, token, caches, pos)

@@ -35,13 +35,15 @@ bit-identical either way.  Refresh (`tREFI/tRFC`), the param-cache
 hit/miss beat charges, write-recovery (`tWR`), the row-quiesce fence,
 and the unpipelined serial barrier are all modeled exactly.
 
-`backend="numpy"` is the only chain here.  The JAX package's
-`backend="jax"` (a jitted `lax.scan` left fold) has a torch counterpart
-still to come; until then any other backend raises `ValueError`.
+`backend="torch"` swaps the sequential bus chain for a strict left fold
+on `device` (the card by default: the `chain_fold` kernel), keeping the
+same bit-exact left-fold semantics, the counterpart of the JAX package's
+`backend="jax"` (`torch_backend.py`).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -81,22 +83,23 @@ class GangResult:
 
 
 def evaluate_gang(lowered: LoweredPlan, banks: int, *, pipelined: bool = True,
-                  backend: str = "numpy", block: int = 96) -> GangResult:
+                  backend: str = "numpy", block: int = 96, device=None) -> GangResult:
     """Evaluate `banks` copies of a lowered stream on one shared bus.
 
     Reproduces `ChannelEngine` under the default round-robin arbiter
     (every stream enqueued at gate 0, drained to completion) exactly:
     same makespans, same per-command start/done floats, same stat
     counters.  `banks=1` additionally matches the paper's `BankTimer`.
+    `device` is where `backend="torch"` runs the chain (None: the card).
     """
     if banks < 1:
         raise ValueError("evaluate_gang: banks must be >= 1")
-    if backend != "numpy":
-        raise ValueError(
-            f"evaluate_gang: unknown backend {backend!r}; only 'numpy' "
-            "runs here (the torch chain, the counterpart of the JAX "
-            "package's 'jax' backend, is not ported yet)")
+    if backend not in ("numpy", "torch"):
+        raise ValueError(f"evaluate_gang: unknown backend {backend!r}")
     chain = _numpy_chain
+    if backend == "torch":
+        from .torch_backend import torch_chain
+        chain = functools.partial(torch_chain, device=device)
 
     lp = lowered
     C = lp.n_cmds
@@ -416,7 +419,7 @@ def phase_breakdown(lowered: LoweredPlan, dones: np.ndarray) -> dict:
 
 def verify_stream(cfg: PimConfig, commands, banks: int, *,
                   param_trace=None, pipelined: bool = True,
-                  backend: str = "numpy") -> GangResult:
+                  backend: str = "numpy", device=None) -> GangResult:
     """Replay one homogeneous gang through BOTH the fastpath and the
     interpreted `ChannelEngine`, asserting bit-identical makespans,
     per-bank stat counters, and bus occupancy.  Raises
@@ -425,7 +428,7 @@ def verify_stream(cfg: PimConfig, commands, banks: int, *,
     from repro_torch.pimsys.engine import replay_gang
 
     lp = lower_commands(cfg, commands, param_trace)
-    g = evaluate_gang(lp, banks, pipelined=pipelined, backend=backend)
+    g = evaluate_gang(lp, banks, pipelined=pipelined, backend=backend, device=device)
     eng = replay_gang(cfg, commands, banks, param_trace=param_trace,
                       pipelined=pipelined)
     if eng.makespan_ns != g.makespan_ns:
@@ -450,7 +453,7 @@ def verify_stream(cfg: PimConfig, commands, banks: int, *,
 
 
 def verify(plan, seed: int = 0, *, banks: int | None = None,
-           pipelined: bool = True, backend: str = "numpy") -> float:
+           pipelined: bool = True, backend: str = "numpy", device=None) -> float:
     """Differential oracle entry point: evaluate `plan` as a homogeneous
     gang through the fastpath AND the interpreted engine, assert equal
     makespans/stat counters, and return the makespan.  `seed` draws the
@@ -463,5 +466,5 @@ def verify(plan, seed: int = 0, *, banks: int | None = None,
         raise ValueError("verify: plan has no homogeneous command stream")
     g = verify_stream(plan.cfg, inner.commands, banks,
                       param_trace=inner.param_trace, pipelined=pipelined,
-                      backend=backend)
+                      backend=backend, device=device)
     return g.makespan_ns

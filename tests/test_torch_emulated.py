@@ -148,3 +148,19 @@ def test_modmul_emulated_matches_plain(emu_lib):
                                 ctx.qprime, ctx.r2_mod_q, None)
     assert err == 0
     assert same(out, kmod.modmul_plain(a, b, ctx))
+
+
+@pytest.mark.parametrize("count", [0, 1, 3, 4, 7, 1536, 3073])
+def test_chain_fold_emulated_matches_numpy(emu_lib, count):
+    """`chain_fold`'s one-thread walk against `np.cumsum` over [b0, *inc]
+    and the plain version, with `==` (lengths around its 4-wide unroll)."""
+    from repro_torch.kernels import fold
+
+    rng = np.random.default_rng(count)
+    inc = torch.from_numpy(rng.uniform(0.0, 60.0, count) * rng.choice([1.0, 1e-3, 1e3], count))
+    b0 = float(rng.uniform(0.0, 1e5))
+    out = torch.empty(count + 1, dtype=torch.float64)
+    assert emu_lib.chain_fold_launch(inc.data_ptr(), out.data_ptr(), count, b0, None) == 0
+    exp = np.cumsum(np.concatenate([[b0], inc.numpy()]))
+    assert np.array_equal(out.numpy(), exp)
+    assert torch.equal(fold.left_fold_plain(inc, b0), out)

@@ -157,3 +157,52 @@ def test_rns_ct_mul_relin_and_rescale_match_cpu_path(cuda):
     exp = he.rescale(basis, he.ct_mul_relin(basis, cpu(a), cpu(b), cpu_key))
     assert np.array_equal(mm.to_numpy_u32(out), mm.to_numpy_u32(exp))
     assert np.array_equal(mm.to_numpy_u32(rlk.b_hat), mm.to_numpy_u32(cpu_key.b_hat))
+
+
+@pytest.mark.parametrize("count", [0, 1, 5, 3072])
+def test_chain_fold_matches_np_cumsum(cuda, count):
+    """`chain_fold` on the card: a strict left fold, `==` to `np.cumsum`."""
+    from repro_torch.kernels import fold
+
+    rng = np.random.default_rng(count)
+    inc = rng.uniform(0.0, 60.0, count)
+    fold.LAUNCHES["chain_fold"] = 0
+    got = fold.left_fold(torch.from_numpy(inc).to(cuda), 12.5).cpu().numpy()
+    assert fold.LAUNCHES["chain_fold"] == 1
+    assert np.array_equal(got, np.cumsum(np.concatenate([[12.5], inc])))
+
+
+def test_fastpath_torch_backend_on_the_card(cuda):
+    from repro_torch.core.mapping import RowCentricMapper
+    from repro_torch.core.pim_config import PimConfig
+    from repro_torch.pimsys import evaluate_gang, lower_commands, param_beat_trace
+
+    cfg = PimConfig(num_buffers=4, param_cache_entries=32)
+    cmds = RowCentricMapper(cfg, 256).commands()
+    lp = lower_commands(cfg, cmds, param_beat_trace(cfg, 256, cmds))
+    for banks in (2, 8):
+        a = evaluate_gang(lp, banks)
+        b = evaluate_gang(lp, banks, backend="torch")  # the card by default
+        assert a.makespan_ns == b.makespan_ns and a.counters == b.counters
+        assert np.array_equal(a.starts, b.starts) and np.array_equal(a.dones, b.dones)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "jamba-1.5-large-398b", "whisper-small"])
+def test_reduced_arch_on_the_card_matches_the_cpu(cuda, arch):
+    """A reduced arch on the card against the CPU on the same weights, with
+    the whole-model bound of tests/test_torch_models.py; and `serve` on the
+    card by default."""
+    import importlib.util
+    import pathlib
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    out = cs.card_vs_cpu(get_config(arch).reduced(capacity_factor=8.0), cuda)
+    assert out["finite"] and out["max_rel_err"] <= out["tol"]
+    res = serve(arch, batch=2, prompt_len=8, gen=3)
+    assert res["device"].startswith("cuda") and res["generated"].shape == (2, 3)

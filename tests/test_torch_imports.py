@@ -1,7 +1,7 @@
-"""The port imports neither `jax` nor the JAX package `repro`.
+"""The port imports neither `jax`, the JAX package `repro`, nor `ml_dtypes`.
 
 An AST scan covers every file of `src/repro_torch/` and `chip_smoke.py`;
-a subprocess in which both names are blocked imports the port's modules.
+a subprocess in which the three names are blocked imports the port's modules.
 """
 import ast
 import os
@@ -13,7 +13,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "repro")
+FORBIDDEN = ("jax", "repro", "ml_dtypes")
 
 
 def imported_roots(path: pathlib.Path) -> set[str]:
@@ -30,8 +30,14 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"modmath.py", "ntt.py", "modmul.py", "ops.py", "backend.py", "rns.py", "chip_smoke.py",
             "mapping.py", "pimsim.py", "session.py"} <= names
-    he_files = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
-    assert "src/repro_torch/he/ops.py" in he_files
+    files = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert "src/repro_torch/he/ops.py" in files
+    lm = {f"src/repro_torch/{m}.py" for m in (
+        "configs/base", "configs/registry", "configs/qwen3_4b", "configs/whisper_small",
+        "models/layers", "models/ssm", "models/transformer", "models/convert",
+        "launch/steps", "launch/serve", "pimsys/fastpath/torch_backend", "kernels/fold")}
+    assert lm <= files
+    assert len([f for f in files if f.startswith("src/repro_torch/configs/")]) == 13
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -45,12 +51,19 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.backend\n"
         "import repro_torch.core.ntt, repro_torch.kernels.ref\n"
         "import repro_torch.he, repro_torch.he.rns\n"
         "import repro_torch.pimsys, repro_torch.he.ops, repro_torch.core.mapping\n"
+        "import repro_torch.pimsys.fastpath.torch_backend, repro_torch.kernels.fold\n"
+        "import repro_torch.configs.registry, repro_torch.models.convert\n"
+        "import repro_torch.models.transformer, repro_torch.launch.serve\n"
+        "from repro_torch.configs.registry import ARCH_NAMES, get_config\n"
+        "assert all(get_config(a).name == a for a in ARCH_NAMES)\n"
         "assert sys.modules['jax'] is None and sys.modules['repro'] is None\n"
-        "assert not any(m.startswith(('jax.', 'repro.')) for m in sys.modules)\n"
+        "assert sys.modules['ml_dtypes'] is None\n"
+        "assert not any(m.startswith(('jax.', 'repro.', 'ml_dtypes.')) for m in sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -201,7 +201,56 @@ def test_fastpath_verify_matches_reference(banks):
 
 
 def test_fastpath_backend_is_numpy_only():
+    """Beside `numpy`, the port's one chain backend is `torch`: the JAX
+    package's `jax` backend, or any other name, is refused."""
     sess = pimsys.PimSession(PimConfig(num_buffers=2))
     lp = pimsys.lower_plan(sess.cfg, sess.compile(pimsys.NttOp(256)))
-    with pytest.raises(ValueError, match="not ported yet"):
-        pimsys.evaluate_gang(lp, 2, backend="jax")
+    for backend in ("jax", "warp"):
+        with pytest.raises(ValueError, match="unknown backend"):
+            pimsys.evaluate_gang(lp, 2, backend=backend)
+
+
+# The pinned grid of tests/test_fastpath_props.py: (n, banks, entries, nb, pipelined).
+FASTPATH_GRID = [(64, 1, 0, 2, True), (64, 16, 128, 2, False), (128, 3, 4, 4, True),
+                 (128, 8, 0, 4, False), (256, 5, 128, 2, True), (256, 12, 4, 4, True),
+                 (256, 2, 32, 4, True), (256, 8, 32, 4, True)]
+
+
+@pytest.mark.parametrize("n,banks,entries,nb,pipelined", FASTPATH_GRID)
+def test_fastpath_torch_backend_bit_identical(n, banks, entries, nb, pipelined):
+    """`backend="torch"` on the CPU (a `torch.cumsum` left fold) equals
+    `backend="numpy"`, and the JAX package's `evaluate_gang` on its own
+    lowering of the same stream, with `==` on every start, done, end time
+    and counter; and the differential oracle accepts it."""
+    from repro.pimsys.engine import param_beat_trace as ref_param_beat_trace
+    from repro_torch.pimsys.engine import param_beat_trace
+
+    cfg = PimConfig(num_buffers=nb, param_cache_entries=entries)
+    cmds = mapping.RowCentricMapper(cfg, n).commands()
+    trace = param_beat_trace(cfg, n, cmds) if entries else None
+    lp = pimsys.lower_commands(cfg, cmds, trace)
+    a = pimsys.evaluate_gang(lp, banks, pipelined=pipelined)
+    b = pimsys.evaluate_gang(lp, banks, pipelined=pipelined, backend="torch", device="cpu")
+    assert plain(a) == plain(b)
+    assert np.array_equal(a.starts, b.starts) and np.array_equal(a.dones, b.dones)
+    ref_cfg = RefPimConfig(num_buffers=nb, param_cache_entries=entries)
+    ref_cmds = ref_mapping.RowCentricMapper(ref_cfg, n).commands()
+    ref_trace = ref_param_beat_trace(ref_cfg, n, ref_cmds) if entries else None
+    r = ref_pimsys.evaluate_gang(ref_pimsys.lower_commands(ref_cfg, ref_cmds, ref_trace), banks,
+                                 pipelined=pipelined)
+    assert plain(r) == plain(b)
+    assert np.array_equal(r.starts, b.starts) and np.array_equal(r.dones, b.dones)
+    g = pimsys.verify_stream(cfg, cmds, banks, param_trace=trace, pipelined=pipelined,
+                             backend="torch", device="cpu")
+    assert g.makespan_ns == a.makespan_ns
+
+
+def test_fastpath_torch_backend_needs_a_card_or_the_cpu():
+    sess = pimsys.PimSession(PimConfig(num_buffers=2))
+    plan = sess.compile(pimsys.NttOp(256))
+    if not torch.cuda.is_available():
+        lp = pimsys.lower_plan(sess.cfg, plan)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pimsys.evaluate_gang(lp, 2, backend="torch")
+    assert pimsys.fastpath_verify(plan, banks=3, backend="torch", device="cpu") == \
+        pimsys.fastpath_verify(plan, banks=3)
