@@ -54,6 +54,20 @@ Phases, one JSON line each:
               (`evaluate_gang(backend="torch")`) over its grid, bit-identical
               to `backend="numpy"`, and the `chain_fold` kernel against its
               plain version, timed.  The LM path launches none of B1-B3.
+ 10. train    the LM training core (`repro_torch.launch.{steps,train}`):
+              (a) qwen3-4b at full size (remat, AdamW with bf16 moments) and
+              (b) mamba2-780m at full size (f32 AdamW), 8 steps each at batch
+              4 x seq 512 from `SyntheticStream(seed=0)`: first-step ms, step
+              ms (CUDA events), tokens/s, model TFLOP/s and its share of the
+              card's bf16 peak (`mfu`), peak memory, the profiler's busy
+              share and kernel classes of one step, loss and grad norm per
+              step, every loss and grad finite and the last 3 losses below
+              the first 3; (c) `train()` at reduced qwen3-4b with
+              checkpoints, 10 steps then a resume to 16 with a fault injected
+              at 13, the exact step list, and a restore equal bit for bit to
+              the state it saved; (d) loss and every grad of the ten reduced
+              archs, card against CPU on the same weights.  The path
+              launches none of the port's kernels.
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises (exit code != 0).
 Imports nothing of `jax` or `repro`.
@@ -62,6 +76,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -69,6 +84,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -95,7 +111,16 @@ from repro_torch.pimsys import (  # noqa: E402
     param_beat_trace,
     verify_stream,
 )
+from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.configs.registry import ARCH_NAMES, get_config  # noqa: E402
+from repro_torch.data.pipeline import SyntheticStream  # noqa: E402
+from repro_torch.launch import steps as steps_lib  # noqa: E402
+from repro_torch.launch.roofline import model_flops  # noqa: E402
+from repro_torch.launch.train import FaultInjector, train  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.optim import OptConfig  # noqa: E402
+from repro_torch.tree import keystr, leaves, leaves_with_path, tree_map  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import fold as kfold  # noqa: E402
 from repro_torch.launch.serve import make_inputs, serve, to_device  # noqa: E402
@@ -168,6 +193,22 @@ FASTPATH_GRID = ((64, 1, 0, 2, True), (64, 16, 128, 2, False), (128, 3, 4, 4, Tr
                  (256, 2, 32, 4, True), (256, 8, 32, 4, True))
 #: FP64 adds outside the tensor cores, per second (NVIDIA H100 SXM data sheet).
 FP64_FLOPS = 34e12
+#: Dense bf16 tensor-core peak (NVIDIA H100 SXM data sheet, at 700 W): the
+#: train phase's `mfu` is model FLOP/s over it.
+BF16_PEAK_FLOPS = 989e12
+#: The train phase's full-size runs: (arch, AdamW moment dtype).  qwen3-4b's
+#: f32 params, grads and f32 moments would hold 70 GB before activations.
+TRAIN_FULL = (("qwen3-4b", "bfloat16"), ("mamba2-780m", "float32"))
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 8
+#: `train()`'s resume-and-fault run: 10 steps, then a resume to 16 with a
+#: fault at 13, checkpoints every 5 steps: the step lists it must give.
+TRAIN_LOOP_STEPS = ([*range(10)], [10, 11, 12, 10, 11, 12, 13, 14, 15])
+#: Card against CPU on the same weights, the loss and every grad leaf
+#: (max |card - cpu| / max |cpu|), reduced archs: twice the largest reading
+#: on the card (NVIDIA H100 80GB HBM3: 0.0257, llama-3.2-vision's ln2 grad;
+#: jamba 0.153, whose bf16 router ties break another way on the card, so
+#: that one token's routing and every grad behind it differ).
+TRAIN_CARD_TOL = {"*": 0.052, "jamba-1.5-large-398b": 0.31}
 KERNEL_INFO = {
     "ntt_tile": ("src/repro_torch/kernels/csrc/ntt.cu", "src/repro/kernels/ntt.py:77"),
     "ntt_pair": ("src/repro_torch/kernels/csrc/ntt.cu", "src/repro/kernels/ntt.py:127"),
@@ -927,6 +968,17 @@ def _kernel_class(name: str) -> str:
     return "elementwise"
 
 
+def _class_times(prof) -> tuple[collections.Counter, collections.Counter]:
+    """(µs, kernels) by `_kernel_class` of a profile's CUDA kernels."""
+    us, count = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            cls = _kernel_class(e.name)
+            us[cls] += e.time_range.elapsed_us()
+            count[cls] += 1
+    return us, count
+
+
 def lm_profile(model, inputs: dict, prompt_len: int, steps: int = 4) -> dict:
     """Device time per decode step by kernel class from torch.profiler's
     CUDA activity over `steps` steps after a prefill (busy time, without
@@ -944,13 +996,7 @@ def lm_profile(model, inputs: dict, prompt_len: int, steps: int = 4) -> dict:
                 token = torch.argmax(logits, dim=-1).to(torch.int32)
             host_s = time.perf_counter() - t0
             torch.cuda.synchronize()
-    us, count = collections.Counter(), collections.Counter()
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        cls = _kernel_class(e.name)
-        us[cls] += e.time_range.elapsed_us()
-        count[cls] += 1
+    us, count = _class_times(prof)
     return {"busy_ms_per_step": sum(us.values()) / steps / 1e3,
             "ms_per_step_by_class": {k: v / steps / 1e3 for k, v in us.most_common()},
             "kernels_per_step": {k: v / steps for k, v in count.most_common()},
@@ -1138,6 +1184,147 @@ def time_fold(rng, device, k: int = 96, banks: int = 16) -> dict:
             "chain_ns_per_add": rec["ms"] * 1e6 / len(inc)}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the LM training core
+# ---------------------------------------------------------------------------
+
+
+def port_launches() -> dict:
+    """Launches so far of every kernel of the port, the chain's included."""
+    return {**kernels.launch_counts(), **kfold.LAUNCHES}
+
+
+def profile_by_class(fn) -> dict:
+    """Device time of one call of `fn` by kernel class (`_kernel_class`), from
+    torch.profiler's CUDA activity: busy time, without the gaps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us, count = _class_times(prof)
+    return {"busy_ms": sum(us.values()) / 1e3, "ms_by_class": {k: v / 1e3 for k, v in us.most_common()},
+            "kernels_by_class": dict(count.most_common()), "kernels": sum(count.values())}
+
+
+def drive_train_steps(arch: str, moments: str, device, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                      steps: int = TRAIN_STEPS, reduced: bool = False, seed: int = SEED) -> dict:
+    """`steps` train steps of `arch` (steps 1..steps: step 0's lr is 0 under
+    warmup) through `make_train_step`, AdamW with `moments`, on batches of
+    `SyntheticStream(seed)`, between a reset and a read of the launch
+    counts; each step's loss, grad norm and ms (CUDA events on the card),
+    then one more step under the profiler.  Every loss and grad norm must
+    be finite (a norm is finite only if every grad is) and the mean of the
+    last 3 losses below that of the first 3."""
+    on_card = torch.device(device).type == "cuda"
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    opt_cfg = OptConfig(moment_dtype=moments, warmup_steps=1, total_steps=steps + 1)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, device)
+    opt_state = steps_lib.make_opt_init(cfg, opt_cfg)(params)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    stream = SyntheticStream(cfg, batch, seq, seed=seed)
+    step_fn = steps_lib.make_train_step(cfg, opt_cfg)
+    rows = []
+    for step in range(1, steps + 1):
+        b = to_device(stream.batch_at(step), device)
+        if on_card:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, b, step)
+        if on_card:
+            ev[1].record()
+        row = {"step": step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"])}
+        _sync(device)
+        row["ms"] = ev[0].elapsed_time(ev[1]) if on_card else (time.perf_counter() - t0) * 1e3
+        rows.append(row)
+    if on_card:  # one more step, under the profiler
+        b = to_device(stream.batch_at(steps + 1), device)
+        prof = profile_by_class(lambda: step_fn(params, opt_state, b, steps + 1))
+    launches = port_launches()
+    losses = [r["loss"] for r in rows]
+    ms = [r["ms"] for r in rows[1:]]
+    step_ms = float(np.median(ms))
+    flops = model_flops(cfg, ShapeConfig("train", seq, batch, "train"))
+    out = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": sum(p.numel() for p in leaves(params)), "remat": cfg.remat, "moment_dtype": moments,
+           "batch": batch, "seq": seq, "steps": rows, "init_s": init_s, "launches": launches,
+           "first_step_ms": rows[0]["ms"], "step_ms": step_ms, "step_ms_spread": [min(ms), max(ms)],
+           "tokens_per_s": batch * seq / step_ms * 1e3, "model_tflop_per_step": flops / 1e12,
+           "model_tflop_per_s": flops / step_ms / 1e9}
+    if on_card:
+        out.update(mfu_vs_bf16_peak=out["model_tflop_per_s"] * 1e12 / BF16_PEAK_FLOPS,
+                   peak_mib=torch.cuda.max_memory_allocated() / 2**20, profile=prof,
+                   busy_share=prof["busy_ms"] / step_ms)
+    del params, opt_state, step_fn
+    if on_card:
+        torch.cuda.empty_cache()
+    finite = all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows)
+    falling = np.mean(losses[-3:]) < np.mean(losses[:3])
+    if not finite or not falling or any(launches.values()):
+        raise AssertionError(f"{arch}: train steps finite {finite}, falling {falling}, launches {launches}: {rows}")
+    return out
+
+
+def drive_train_loop(device, arch: str = "qwen3-4b", batch: int = 4, seq: int = 64) -> dict:
+    """`train()` on `device` at reduced `arch`, checkpoints in a temporary
+    directory: 10 steps, then a resume to 16 with a fault injected at step
+    13, each run's step list exactly `TRAIN_LOOP_STEPS` (an unexpected
+    rollback fails the phase), the retried steps' losses equal to their
+    first run's, and a restore of the last checkpoint equal bit for bit to
+    the state `train` returned."""
+    kw = dict(batch=batch, seq=seq, ckpt_every=5, log_every=100, device=device)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        _, _, hist1 = train(arch, 10, ckpt_dir=d, **kw)
+        params, opt_state, hist2 = train(arch, 16, ckpt_dir=d, injector=FaultInjector([13]), **kw)
+        seconds = time.perf_counter() - t0
+        restored, manifest = CheckpointManager(d).restore(16, (params, opt_state), device=device)
+        same_state = all(torch.equal(a, b) for a, b in zip(leaves((params, opt_state)), leaves(restored)))
+    runs = [[h["step"] for h in hist] for hist in (hist1, hist2)]
+    first = {}
+    repeats_equal = all(first.setdefault(h["step"], h["loss"]) == h["loss"] for h in hist2)
+    out = {"arch": arch, "batch": batch, "seq": seq, "step_lists": runs, "expected": list(TRAIN_LOOP_STEPS),
+           "losses": [h["loss"] for h in hist1 + hist2], "retried_losses_equal": repeats_equal,
+           "restore_step": manifest["step"], "restore_bit_exact": same_state, "seconds": seconds}
+    if runs != list(TRAIN_LOOP_STEPS) or not repeats_equal or not same_state:
+        raise AssertionError(f"train() resume / fault run: {out}")
+    return out
+
+
+def train_card_vs_cpu(cfg, device, batch: int = 2, seq: int = 16, seed: int = SEED, tol: float | None = None) -> dict:
+    """The loss and every grad of `cfg` on the CPU and with the same weights
+    on `device`: max |card - cpu| / max |cpu| of the loss and of each leaf's
+    grad, the largest against `tol` (`TRAIN_CARD_TOL` by default)."""
+    tol = TRAIN_CARD_TOL.get(cfg.name.removesuffix("-smoke"), TRAIN_CARD_TOL["*"]) if tol is None else tol
+    gen = torch.Generator().manual_seed(seed)
+    cpu = T.init_params(cfg, gen, "cpu")
+    inputs = make_inputs(cfg, batch, seq, seed)
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("card", device)):
+        params = cpu if dev == "cpu" else tree_map(lambda p: p.to(dev), cpu)
+        loss, _, grads = steps_lib.loss_and_grads(cfg, params, to_device(inputs, dev))
+        out[name] = [loss] + leaves(grads)
+    names = ["loss"] + [keystr(p) for p, _ in leaves_with_path(cpu)]
+    rel = {n: _rel_err(c, g) for n, c, g in zip(names, out["cpu"], out["card"])}
+    finite = all(bool(torch.isfinite(g).all()) for g in out["card"])
+    worst = max(rel, key=rel.get)
+    res = {"arch": cfg.name, "tol": tol, "loss_rel_err": rel["loss"], "max_rel_err": rel[worst],
+           "worst_leaf": worst, "leaves": len(names) - 1, "finite": finite}
+    if not finite or res["max_rel_err"] > tol:
+        raise AssertionError(f"train: card and CPU disagree: {res}")
+    return res
+
+
 def sass_summary(library: str) -> dict | None:
     """Per kernel of the built library, its SASS instruction count by
     opcode class, from `cuobjdump -sass` where the toolkit has it."""
@@ -1241,6 +1428,23 @@ def main() -> int:
     emit({"phase": "lm", "part": "done", "seconds": time.perf_counter() - t_lm,
           "card": nvidia_smi("name,power.limit,power.draw,clocks.sm,temperature.gpu")})
 
+    # phase 10: the LM training core, on a card the lm phase's models have left
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+    train_runs = []
+    for arch, moments in TRAIN_FULL:
+        train_runs.append(drive_train_steps(arch, moments, device))
+        emit({"phase": "train", "part": "steps", **train_runs[-1]})
+    kernels.reset_launch_counts()
+    loop = drive_train_loop(device)
+    train_runs.append({"launches": port_launches()})
+    emit({"phase": "train", "part": "train_loop", **loop})
+    grads = [train_card_vs_cpu(get_config(a).reduced(capacity_factor=8.0), device) for a in ARCH_NAMES]
+    emit({"phase": "train", "part": "card_vs_cpu", "archs": grads})
+    emit({"phase": "train", "part": "done", "seconds": time.perf_counter() - t_train,
+          "card": nvidia_smi("name,power.limit,power.draw,clocks.sm,temperature.gpu")})
+
     big = timing[f"{MAIN_SHAPES[0][0]}x{MAIN_SHAPES[0][1]}"]
     rows = []
     for kname, (source, replaces) in KERNEL_INFO.items():
@@ -1251,7 +1455,8 @@ def main() -> int:
             "launches_by_path": {"polymul_ntt": launches[kname], "rns relin_key": rns["key_launches"][kname],
                                  "rns ct_mul_relin + rescale": rns["launches"][kname],
                                  "pimsys CtMulRelinOp run": pim["card"]["launches"][kname],
-                                 "lm serve": sum(r["launches"][kname] for r in lm_serves)},
+                                 "lm serve": sum(r["launches"][kname] for r in lm_serves),
+                                 "train": sum(r["launches"][kname] for r in train_runs)},
             "bit_exact": checked["max_abs_err"][kname] == 0,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -1261,7 +1466,8 @@ def main() -> int:
         "name": "chain_fold", "route": "cuda", "source": "src/repro_torch/kernels/csrc/fold.cu",
         "replaces": "src/repro/pimsys/fastpath/jax_backend.py:39 (_scan_chain, a lax.scan, not Pallas)",
         "launches": fastpath["launches"]["chain_fold"], "max_abs_err": fold_check["max_abs_err"],
-        "launches_by_path": {"fastpath evaluate_gang grid": fastpath["launches"]["chain_fold"]},
+        "launches_by_path": {"fastpath evaluate_gang grid": fastpath["launches"]["chain_fold"],
+                             "train": sum(r["launches"]["chain_fold"] for r in train_runs)},
         "bit_exact": fold_check["max_abs_err"] == 0,
         "ms": fold_timing["ms"], "plain_ms": fold_timing["plain_ms"], "bound_ms": fold_timing["bound_ms"],
         "bound_by": fold_timing["bound_by"], "library_ms": fold_timing["library_ms"],

@@ -1,2 +1,2 @@
-"""Serving entry points: the port of the JAX package's `repro.launch`
-(serving half: `steps.make_prefill_step` / `make_decode_step` and `serve`)."""
+"""Entry points: the port of the JAX package's `repro.launch` (`steps`,
+`serve`, `train`, and `roofline`'s analytic counts)."""

@@ -86,12 +86,18 @@ def einsum3(sub: str, *ops: torch.Tensor) -> torch.Tensor:
 
 
 def _segsum_decay(a_cs):
-    """L[i, j] = exp(a_cs[i] - a_cs[j]) for i >= j else 0.  a_cs: (..., L)."""
+    """L[i, j] = exp(a_cs[i] - a_cs[j]) for i >= j else 0.  a_cs: (..., L).
+
+    The mask is applied before `exp`, as -inf: above the diagonal the
+    argument is a sum of up to L - 1 positive steps and overflows to inf
+    at the published chunk of 256, and the backward of a mask applied after
+    `exp` multiplies that inf by 0 (the reference's form, NaN grads).  The
+    forward is that of the mask after `exp` bit for bit (exp(-inf) = 0)."""
     li = a_cs[..., :, None]
     lj = a_cs[..., None, :]
     n = a_cs.shape[-1]
     mask = torch.tril(torch.ones((n, n), dtype=torch.bool, device=a_cs.device))
-    return torch.where(mask, torch.exp(li - lj), 0.0)
+    return torch.exp(torch.where(mask, li - lj, -torch.inf))
 
 
 def _chunk_scan(init_state, chunk_states, a_total):

@@ -1,5 +1,5 @@
 """Pattern-repeated decoder LM covering all assigned families: the port of
-the JAX package's `repro/models/transformer.py`, serving half.
+the JAX package's `repro/models/transformer.py`.
 
 The model is a loop over `cfg.reps` repetitions of `cfg.pattern()`; every
 pattern position has its own stacked parameter dict (leading dim = reps),
@@ -9,7 +9,8 @@ that indexes the stacks.
 Entry points (functions over a param dict, and the same as methods of
 `Transformer`, an `nn.Module` that holds the dict):
   init_params(cfg, generator, device)          parameter dict
-  forward(params, cfg, batch)                  full-seq logits + aux
+  forward(params, cfg, batch)                  full-seq logits + aux (train)
+  loss_fn(params, cfg, batch)                  next-token cross-entropy + aux
   prefill(params, cfg, batch, cache_len)       logits at last pos + caches
   decode_step(params, cfg, token, caches, pos) one-token serve step
   encoder_forward(params, cfg, frames)         whisper encoder (conv stub in)
@@ -19,18 +20,25 @@ Caches are lists of dicts aligned with the stacked params: leading dim = reps.
   mamba : {"conv": (reps,B,W-1,xbc), "state": (reps,B,H,P,N)}
   cross : {"ck": (reps,B,S_enc,KV,hd), "cv": ...}  (precomputed at prefill)
 `decode_step` writes them in place and returns them (the reference
-returns new, donated ones).  Run under `torch.inference_mode()`.  The
-entry points sum bf16 products in f32 (`layers.f32_accumulation`).
+returns new, donated ones).  Serve under `torch.inference_mode()`.  The
+entry points sum bf16 products in f32 (`layers.f32_accumulation`).  With
+`cfg.remat`, `forward` recomputes each rep in the backward
+(`torch.utils.checkpoint`, the reference's `jax.checkpoint` per rep), only
+while grads are being recorded.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
+from repro_torch.tree import tree_map
 
 COMPUTE_DTYPE = L.COMPUTE_DTYPE
 
@@ -60,14 +68,6 @@ def _block_init(cfg: ModelConfig, mixer: str, ffn: str, lead: tuple, generator, 
     return p
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     """Random parameters in the reference's layout, shapes and scales
     (embed x 0.02, He-normal weights, ones, zeros, a_log = log(1..H)),
@@ -87,7 +87,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
         }
     if cfg.param_dtype != "float32":
         dt = getattr(torch, cfg.param_dtype)
-        params = _tree_map(lambda x: x.to(dt), params)
+        params = tree_map(lambda x: x.to(dt), params)
     return params
 
 
@@ -128,6 +128,22 @@ def _rep_slice(stack, r):
     return {k: _rep_slice(v, r) if isinstance(v, dict) else v[r] for k, v in stack.items()}
 
 
+def _rep_slices(stack, reps: int) -> list[dict]:
+    """Every rep's `_rep_slice` of a stacked dict, from one `unbind` per
+    leaf: the backward then writes each leaf's grad once, where one
+    indexing per rep would write a zero-filled full-size grad per rep."""
+    per = {k: _rep_slices(v, reps) if isinstance(v, dict) else torch.unbind(v) for k, v in stack.items()}
+    return [{k: v[r] for k, v in per.items()} for r in range(reps)]
+
+
+def _apply_rep(cfg, p_slices, positions, enc_out, x, aux):
+    """One repetition of the pattern (the reference's scan body)."""
+    for i, (mixer, ffn) in enumerate(cfg.pattern()):
+        x, a = _apply_block(cfg, mixer, ffn, p_slices[i], x, positions, enc_out)
+        aux = aux + a
+    return x, aux
+
+
 def _positions(b, s, device):
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
@@ -138,7 +154,7 @@ def _head(params):
 
 
 # ---------------------------------------------------------------------------
-# public: scoring forward
+# public: training / scoring forward
 # ---------------------------------------------------------------------------
 
 
@@ -148,8 +164,8 @@ def encoder_forward(params, cfg: ModelConfig, frames):
     x = frames.to(COMPUTE_DTYPE)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     enc = params["encoder"]
-    for r in range(cfg.encoder_layers):
-        x, _ = _apply_block(cfg, "attn_nc", "mlp", _rep_slice(enc["blocks"], r), x, positions, None)
+    for p in _rep_slices(enc["blocks"], cfg.encoder_layers):
+        x, _ = _apply_block(cfg, "attn_nc", "mlp", p, x, positions, None)
     return L.rmsnorm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -169,12 +185,25 @@ def forward(params, cfg: ModelConfig, batch):
     positions = _positions(*tokens.shape, tokens.device)
     enc_out = _enc_out(params, cfg, batch)
     aux = torch.zeros((), dtype=L.F32, device=x.device)
+    blocks = [_rep_slices(stack, cfg.reps) for stack in params["blocks"]]
+    remat = cfg.remat and torch.is_grad_enabled()
     for r in range(cfg.reps):
-        for i, (mixer, ffn) in enumerate(cfg.pattern()):
-            x, a = _apply_block(cfg, mixer, ffn, _rep_slice(params["blocks"][i], r), x, positions, enc_out)
-            aux = aux + a
+        body = functools.partial(_apply_rep, cfg, [b[r] for b in blocks], positions, enc_out)
+        x, aux = checkpoint(body, x, aux, use_reentrant=False) if remat else body(x, aux)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x @ _head(params).to(COMPUTE_DTYPE), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Next-token cross-entropy in f32 (+ 0.01 x the MoE aux loss).
+    Returns (loss, {"ce", "aux"})."""
+    logits, aux = forward(params, cfg, batch)
+    targets = batch["tokens"][:, 1:].long()
+    logits = logits[:, :-1].to(L.F32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    ce = torch.mean(logz - gold)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

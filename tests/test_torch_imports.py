@@ -37,6 +37,10 @@ def test_port_files_found():
         "models/layers", "models/ssm", "models/transformer", "models/convert",
         "launch/steps", "launch/serve", "pimsys/fastpath/torch_backend", "kernels/fold")}
     assert lm <= files
+    train = {f"src/repro_torch/{m}.py" for m in (
+        "optim/__init__", "optim/optimizers", "data/pipeline", "ckpt/checkpoint",
+        "distributed/compression", "launch/train", "launch/roofline", "tree")}
+    assert train <= files
     assert len([f for f in files if f.startswith("src/repro_torch/configs/")]) == 13
 
 
@@ -59,6 +63,9 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.pimsys.fastpath.torch_backend, repro_torch.kernels.fold\n"
         "import repro_torch.configs.registry, repro_torch.models.convert\n"
         "import repro_torch.models.transformer, repro_torch.launch.serve\n"
+        "import repro_torch.optim, repro_torch.data.pipeline, repro_torch.ckpt.checkpoint\n"
+        "import repro_torch.distributed.compression, repro_torch.launch.train, repro_torch.launch.roofline\n"
+        "from repro_torch.launch.steps import loss_and_grads, make_train_step, param_specs\n"
         "from repro_torch.configs.registry import ARCH_NAMES, get_config\n"
         "assert all(get_config(a).name == a for a in ARCH_NAMES)\n"
         "assert sys.modules['jax'] is None and sys.modules['repro'] is None\n"
