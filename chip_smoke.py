@@ -52,8 +52,13 @@ Phases, one JSON line each:
               width at 2 layers and the ten archs reduced, card against CPU
               on the same weights; then the fastpath chain
               (`evaluate_gang(backend="torch")`) over its grid, bit-identical
-              to `backend="numpy"`, and the `chain_fold` kernel against its
-              plain version, timed.  The LM path launches none of B1-B3.
+              to `backend="numpy"`, with its chains' statistics, the kernel's
+              summed device time and each chain's round trip broken down
+              (host prep, kernel, launch and sync); and `chain_fold` against
+              its plain version and `np.cumsum` (the round trip, the kernel
+              and its staged form), timed at 96 x 16 and 5 x 8 beside the
+              dependency bound from the `fold_dadd_probe` DADD latency and
+              the roofline bound.  The LM path launches none of B1-B3.
  10. train    the LM training core (`repro_torch.launch.{steps,train}`):
               (a) qwen3-4b at full size (remat, AdamW with bf16 moments) and
               (b) mamba2-780m at full size (f32 AdamW), 8 steps each at batch
@@ -123,6 +128,7 @@ from repro_torch.optim import OptConfig  # noqa: E402
 from repro_torch.tree import keystr, leaves, leaves_with_path, tree_map  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import fold as kfold  # noqa: E402
+from repro_torch.pimsys.fastpath import evaluate as fp_evaluate  # noqa: E402
 from repro_torch.launch.serve import make_inputs, serve, to_device  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.kernels import modmul as kmod  # noqa: E402
@@ -193,6 +199,17 @@ FASTPATH_GRID = ((64, 1, 0, 2, True), (64, 16, 128, 2, False), (128, 3, 4, 4, Tr
                  (256, 2, 32, 4, True), (256, 8, 32, 4, True))
 #: FP64 adds outside the tensor cores, per second (NVIDIA H100 SXM data sheet).
 FP64_FLOPS = 34e12
+#: (K rounds, banks) of the chain checks: the fastpath's block at 16 and 8
+#: banks, edge lengths, and 512 x 32 (16 of the kernel's segments of 1024 bank steps).
+FOLD_SHAPES = ((96, 16), (96, 8), (1, 1), (3, 1), (2, 5), (40, 3), (512, 32), (0, 4))
+#: (K rounds, banks) timed: the fastpath's block at 16 banks (3,072 adds) and
+#: the grid's median chain (80 adds).
+FOLD_TIMED = ((96, 16), (5, 8))
+#: Rounds x 16 banks timed for the kernel's cost an add (the slope of its
+#: time against the adds) and its fixed cost (the intercept).
+FOLD_FIT_ROUNDS = (32, 96, 256, 512)
+#: Dependent DADDs in one launch of `fold_dadd_probe` (a multiple of 16).
+DADD_PROBE_ADDS = 1 << 21
 #: Dense bf16 tensor-core peak (NVIDIA H100 SXM data sheet, at 700 W): the
 #: train phase's `mfu` is model FLOP/s over it.
 BF16_PEAK_FLOPS = 989e12
@@ -1096,7 +1113,9 @@ def drive_fastpath(device) -> dict:
     """`evaluate_gang(..., backend="torch", device=device)` over the grid,
     between a reset and a read of the chain kernel's count, each result
     equal to `backend="numpy"` with `==` (starts, dones, end times,
-    counters), and one `verify_stream` through the torch backend."""
+    counters), and one `verify_stream` through the torch backend; then the
+    grid's chains (count, adds) and, on the card, their round trips broken
+    down."""
     lowered = [(lower_commands(cfg, cmds, trace), cmds, cfg, trace, banks, pipelined)
                for cfg, cmds, trace, banks, pipelined in fastpath_cases()]
     kernels.reset_launch_counts()
@@ -1118,70 +1137,205 @@ def drive_fastpath(device) -> dict:
     _, cmds, cfg, trace, banks, pipelined = lowered[-1]
     verified = verify_stream(cfg, cmds, banks, param_trace=trace, pipelined=pipelined,
                              backend="torch", device=device).makespan_ns
+    chains = record_chains(lowered)
+    adds = [2 * len(pn) * n for _, pn, n, _ in chains]
     out = {"cases": cases, "launches": launches, "torch_s": torch_s, "numpy_s": numpy_s,
-           "verify_stream_makespan_ns": verified}
+           "verify_stream_makespan_ns": verified,
+           "chains": {"count": len(chains), "adds": sum(adds), "median_adds": float(np.median(adds)),
+                      "mean_adds": float(np.mean(adds)), "max_adds": max(adds)},
+           "torch_minus_numpy_us_per_chain": (torch_s - numpy_s) / len(chains) * 1e6}
+    if torch.device(device).type == "cuda":
+        out["round_trip"] = round_trip_breakdown(chains, device)
     if not all(c["bit_identical"] for c in cases) or verified != want[-1].makespan_ns:
         raise AssertionError(f"fastpath torch backend differs from numpy: {out}")
+    if launches["chain_fold"] not in (0, len(chains)):
+        raise AssertionError(f"{launches['chain_fold']} chain_fold launches for {len(chains)} chains")
     return out
 
 
-def chain_inputs(rng, k: int, banks: int) -> tuple[np.ndarray, float]:
-    """The increments of one speculative block of K rounds x `banks`:
-    per round a param time, then the bus time, as `torch_chain` builds them."""
-    pn = rng.uniform(0.0, 60.0, k)
-    inc = np.empty(2 * k * banks)
-    inc[0::2] = np.repeat(pn, banks)
-    inc[1::2] = 1.25
-    return inc, float(rng.uniform(0.0, 1e5))
+def record_chains(lowered) -> list:
+    """The inputs ``(b0, round times, banks, t_bus)`` of every chain that the
+    numpy fastpath evaluates over the grid, in order."""
+    chains, numpy_chain = [], fp_evaluate._numpy_chain
+
+    def record(b0, pn_blk, n, t_bus):
+        chains.append((b0, np.array(pn_blk), n, t_bus))
+        return numpy_chain(b0, pn_blk, n, t_bus)
+
+    fp_evaluate._numpy_chain = record
+    try:
+        for lp, _, _, _, banks, pipelined in lowered:
+            evaluate_gang(lp, banks, pipelined=pipelined)
+    finally:
+        fp_evaluate._numpy_chain = numpy_chain
+    return chains
+
+
+def round_trip_breakdown(chains, device) -> dict:
+    """The grid's chains on the card, µs a chain: `total_us` through
+    `kfold.chain_fold` as the backend calls it; then the same chains through
+    its steps on the host clock: `host_prep_us` (the round times into pinned
+    memory, the chain copied out of it) and `call_us` (the library call: the
+    launch, the kernel reading and writing the pinned buffers, the sync), and
+    `empty_call_us`, the call for a chain of no rounds (a launch and a sync
+    of a kernel with nothing to walk).  `kernel_ms_sum` is the kernel's
+    device time over the grid's chains on device memory, launched back to
+    back behind a GPU sleep between two CUDA events; `kernel_us` that a
+    chain."""
+    rt = kfold.round_trip(device)
+    for c in chains[:20]:
+        kfold.chain_fold(*c, device)
+    t0 = time.perf_counter()
+    for c in chains:
+        kfold.chain_fold(*c, device)
+    total = time.perf_counter() - t0
+    prep = call = 0.0
+    for b0, pn, n, t_bus in chains:
+        t0 = time.perf_counter()
+        length = rt.stage(pn, n)
+        t1 = time.perf_counter()
+        rt.run(b0, len(pn), n, t_bus)
+        t2 = time.perf_counter()
+        rt.out[0][:length].copy()
+        prep += (t1 - t0) + (time.perf_counter() - t2)
+        call += t2 - t1
+    rt.stage(np.empty(0), 1)
+    t0 = time.perf_counter()
+    for _ in chains:
+        rt.run(0.0, 0, 1, 1.0)
+    empty = time.perf_counter() - t0
+    inputs = [(torch.from_numpy(pn).to(device), torch.empty(1 + 2 * len(pn) * n, dtype=torch.float64,
+                                                           device=device), b0, n, t_bus)
+              for b0, pn, n, t_bus in chains]
+    kernel_ms = _events_ms(lambda: [kfold.chain_fold_cuda(*a) for a in inputs], 1,
+                           sleep_ms=len(chains) * 0.05)[0]
+    per = 1e6 / len(chains)
+    return {"chains": len(chains), "total_us": total * per, "host_prep_us": prep * per,
+            "call_us": call * per, "empty_call_us": empty * per, "kernel_us": kernel_ms * 1e3 / len(chains),
+            "kernel_ms_sum": kernel_ms}
+
+
+def chain_inputs(rng, k: int, banks: int) -> tuple:
+    """One speculative block of K rounds x `banks`: ``(b0, the K round times
+    of mixed magnitudes, banks, t_bus)``, as `torch_chain` takes them."""
+    pn = rng.uniform(0.0, 60.0, k) * rng.choice([1e-3, 1.0, 1e3], k)
+    return float(rng.uniform(0.0, 1e5)), pn, banks, float(rng.choice([0.3, 1.25, 37.5]))
+
+
+def increments(b0, pn, n, t_bus) -> np.ndarray:
+    """``[b0, pn[0], t_bus, pn[0], t_bus, ...]``, each round time n times."""
+    inc = np.empty(1 + 2 * len(pn) * n)
+    inc[0] = b0
+    inc[1::2] = np.repeat(pn, n)
+    inc[2::2] = t_bus
+    return inc
+
+
+def numpy_chain(b0, pn, n, t_bus) -> np.ndarray:
+    """The chain as the numpy fastpath builds it: `np.cumsum` over the increments."""
+    return np.cumsum(increments(b0, pn, n, t_bus))
 
 
 def check_fold(rng, device) -> dict:
-    """`chain_fold` on the card against its plain version (on the CPU, where
-    `torch.cumsum` is a left fold) and `np.cumsum`, with `==`, at the main
-    block (K = 96 rounds x 16 banks) and at edge lengths."""
+    """`chain_fold` on `device` against its plain version (on the CPU, where
+    `torch.cumsum` is a left fold) and `np.cumsum`, with `==`, at
+    `FOLD_SHAPES`: the round trip the fastpath makes and, on the card, the
+    kernel alone on device memory, and its staged form; then four chains in
+    a row through the round trip, each result right after the others (the
+    buffers are reused)."""
     checks, err = [], 0.0
-    for k, banks in ((96, 16), (96, 8), (1, 1), (3, 1), (2, 5), (40, 3)):
-        inc, b0 = chain_inputs(rng, k, banks)
-        t = torch.from_numpy(inc)
-        got = kfold.left_fold(t.to(device), b0).cpu()
-        plain = kfold.left_fold_plain(t, b0)
-        ref = np.cumsum(np.concatenate([[b0], inc]))
-        err = max(err, float((got - plain).abs().max()))
-        checks.append({"rounds": k, "banks": banks, "length": len(inc) + 1,
-                       "bit_exact_vs_plain": bool(torch.equal(got, plain)),
-                       "bit_exact_vs_np_cumsum": bool(np.array_equal(got.numpy(), ref))})
-    empty = kfold.left_fold(torch.empty(0, dtype=torch.float64, device=device), 2.5).cpu()
-    checks.append({"length": 1, "bit_exact_vs_plain": bool(empty.tolist() == [2.5]),
-                   "bit_exact_vs_np_cumsum": bool(empty.tolist() == [2.5])})
+    on_card = torch.device(device).type == "cuda"
+    for k, banks in FOLD_SHAPES:
+        b0, pn, n, t_bus = chain_inputs(rng, k, banks)
+        ref = numpy_chain(b0, pn, n, t_bus)
+        plain = kfold.chain_fold_plain(b0, pn, n, t_bus).numpy()
+        got = {"round_trip": kfold.chain_fold(b0, pn, n, t_bus, device)}
+        if on_card:
+            x = torch.from_numpy(pn).to(device)
+            for form, staged in (("kernel", False), ("staged", True)):
+                out = torch.empty(len(ref), dtype=torch.float64, device=device)
+                got[form] = kfold.chain_fold_cuda(x, out, b0, n, t_bus, staged).cpu().numpy()
+        for form, g in got.items():
+            err = max(err, float(np.abs(g - plain).max()))
+            checks.append({"rounds": k, "banks": banks, "length": len(ref), "form": form,
+                           "bit_exact_vs_plain": bool(np.array_equal(g, plain)),
+                           "bit_exact_vs_np_cumsum": bool(np.array_equal(g, ref))})
+    row = [chain_inputs(rng, k, banks) for k, banks in ((96, 16), (3, 2), (512, 32), (5, 8))]
+    outs = [kfold.chain_fold(*c, device) for c in row]
+    checks.append({"in_a_row": [[len(c[1]), c[2]] for c in row], "form": "round_trip",
+                   "bit_exact_vs_plain": all(np.array_equal(o, kfold.chain_fold_plain(*c).numpy())
+                                             for o, c in zip(outs, row)),
+                   "bit_exact_vs_np_cumsum": all(np.array_equal(o, numpy_chain(*c)) for o, c in zip(outs, row))})
     if not all(c["bit_exact_vs_plain"] and c["bit_exact_vs_np_cumsum"] for c in checks):
         raise AssertionError(f"chain_fold differs: {checks}")
     return {"max_abs_err": err, "checks": checks}
 
 
-def time_fold(rng, device, k: int = 96, banks: int = 16) -> dict:
-    """`chain_fold` per launch at the main block, beside its bound, the plain
+def time_dadd_probe(device) -> dict:
+    """ns per dependent DADD on the card: `fold_dadd_probe` (one thread,
+    `DADD_PROBE_ADDS` dependent register adds) timed by CUDA events, its sum
+    checked against `np.cumsum`."""
+    lib = _build.load()
+    out = torch.empty(1, dtype=torch.float64, device=device)
+    stream = _build.stream_handle(torch.device(device))
+
+    def probe():
+        _build.check(lib.fold_dadd_probe_launch(out.data_ptr(), DADD_PROBE_ADDS, 0.5, 0.1, stream),
+                     "fold_dadd_probe")
+
+    rec = time_ms(probe, 3)
+    want = float(np.cumsum(np.concatenate([[0.5], np.full(DADD_PROBE_ADDS, 0.1)]))[-1])
+    if out.item() != want:
+        raise AssertionError(f"fold_dadd_probe summed {out.item()!r}, np.cumsum {want!r}")
+    return {**rec, "adds": DADD_PROBE_ADDS, "ns_per_dadd": rec["ms"] * 1e6 / DADD_PROBE_ADDS}
+
+
+def time_fold(rng, device) -> dict:
+    """`chain_fold` alone per launch at `FOLD_TIMED` on device memory, and
+    its staged form, beside the dependency bound (2*K*n dependent adds at the
+    probe's DADD latency) and its share, the roofline bound (K doubles in,
+    2*K*n + 1 out, at the memory rate; the adds at the FP64 rate), the plain
     version (on the CPU, host clock) and `torch.cumsum` on the card (a
-    parallel scan: the same sums, reassociated)."""
-    inc, b0 = chain_inputs(rng, k, banks)
-    x = torch.from_numpy(inc).to(device)
-    rec = time_ms(lambda: kfold.left_fold(x, b0), 50)
-    cpu = torch.from_numpy(inc)
-    kfold.left_fold_plain(cpu, b0)
-    t0 = time.perf_counter()
-    for _ in range(200):
-        kfold.left_fold_plain(cpu, b0)
-    plain_ms = (time.perf_counter() - t0) / 200 * 1e3
-    with_b0 = torch.cat([x.new_tensor([b0]), x])
-    lib = time_ms(lambda: torch.cumsum(with_b0, 0), 50)
-    lib_exact = bool(torch.equal(torch.cumsum(with_b0, 0).cpu(), kfold.left_fold_plain(cpu, b0)))
-    nbytes = 8 * len(inc) + 8 * (len(inc) + 1)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = len(inc) / FP64_FLOPS * 1e3
-    return {**rec, "plain_ms": plain_ms, "plain_device": "cpu", "library_ms": lib["ms"],
-            "library_call": "torch.cumsum(x, 0) on the card", "library_bit_exact": lib_exact,
-            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "adds": len(inc), "rounds": k, "banks": banks,
-            "chain_ns_per_add": rec["ms"] * 1e6 / len(inc)}
+    parallel scan: the same sums, reassociated); then its time against the
+    adds at `FOLD_FIT_ROUNDS` x 16 banks, fitted to a line: the walk's ns an
+    add and the fixed cost of a launch."""
+    probe = time_dadd_probe(device)
+    shapes = {}
+    for k, banks in FOLD_TIMED:
+        b0, pn, n, t_bus = chain_inputs(rng, k, banks)
+        x = torch.from_numpy(pn).to(device)
+        out = torch.empty(1 + 2 * k * n, dtype=torch.float64, device=device)
+        rec = time_ms(lambda: kfold.chain_fold_cuda(x, out, b0, n, t_bus), 50)
+        staged_ms = time_ms(lambda: kfold.chain_fold_cuda(x, out, b0, n, t_bus, True), 50)["ms"]
+        plain = kfold.chain_fold_plain(b0, pn, n, t_bus)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            kfold.chain_fold_plain(b0, pn, n, t_bus)
+        plain_ms = (time.perf_counter() - t0) / 200 * 1e3
+        inc = torch.from_numpy(increments(b0, pn, n, t_bus)).to(device)
+        lib = time_ms(lambda: torch.cumsum(inc, 0), 50)
+        lib_exact = bool(torch.equal(torch.cumsum(inc, 0).cpu(), plain))
+        adds = 2 * k * n
+        nbytes = 8 * k + 8 * (adds + 1)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = adds / FP64_FLOPS * 1e3
+        dep_ms = adds * probe["ns_per_dadd"] * 1e-6
+        shapes[f"{k}x{banks}"] = {
+            **rec, "staged_ms": staged_ms, "plain_ms": plain_ms, "plain_device": "cpu",
+            "library_ms": lib["ms"], "library_call": "torch.cumsum(x, 0) on the card",
+            "library_bit_exact": lib_exact, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "dependency_bound_ms": dep_ms,
+            "dependency_share": dep_ms / rec["ms"], "bytes": nbytes, "adds": adds, "rounds": k,
+            "banks": banks, "ns_per_add": rec["ms"] * 1e6 / adds}
+    fit = []
+    for k in FOLD_FIT_ROUNDS:
+        b0, pn, n, t_bus = chain_inputs(rng, k, 16)
+        x = torch.from_numpy(pn).to(device)
+        out = torch.empty(1 + 2 * k * n, dtype=torch.float64, device=device)
+        fit.append((2 * k * n, time_ms(lambda: kfold.chain_fold_cuda(x, out, b0, n, t_bus), 30)["ms"]))
+    slope, intercept = np.polyfit(*zip(*fit), 1)
+    return {"probe": probe, "shapes": shapes, "fit_adds_ms": fit, "walk_ns_per_add": slope * 1e6,
+            "walk_share_of_dadd_latency": probe["ns_per_dadd"] / (slope * 1e6), "fixed_us": intercept * 1e3}
 
 
 # ---------------------------------------------------------------------------
@@ -1422,6 +1576,7 @@ def main() -> int:
     fold_check = check_fold(rng, device)
     fastpath = drive_fastpath(device)
     fold_timing = time_fold(rng, device)
+    fastpath["grid_dependency_bound_ms"] = fastpath["chains"]["adds"] * fold_timing["probe"]["ns_per_dadd"] * 1e-6
     emit({"phase": "lm", "part": "fastpath", "check": fold_check, **fastpath, "timing": fold_timing})
     if fastpath["launches"]["chain_fold"] <= 0:
         raise AssertionError(f"the fastpath's torch backend launched no chain_fold: {fastpath['launches']}")
@@ -1462,6 +1617,7 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": list(MAIN_SHAPES[0]),
         })
+    block = fold_timing["shapes"]["%dx%d" % FOLD_TIMED[0]]
     rows.append({
         "name": "chain_fold", "route": "cuda", "source": "src/repro_torch/kernels/csrc/fold.cu",
         "replaces": "src/repro/pimsys/fastpath/jax_backend.py:39 (_scan_chain, a lax.scan, not Pallas)",
@@ -1469,9 +1625,9 @@ def main() -> int:
         "launches_by_path": {"fastpath evaluate_gang grid": fastpath["launches"]["chain_fold"],
                              "train": sum(r["launches"]["chain_fold"] for r in train_runs)},
         "bit_exact": fold_check["max_abs_err"] == 0,
-        "ms": fold_timing["ms"], "plain_ms": fold_timing["plain_ms"], "bound_ms": fold_timing["bound_ms"],
-        "bound_by": fold_timing["bound_by"], "library_ms": fold_timing["library_ms"],
-        "shape": [fold_timing["adds"]],
+        "ms": block["ms"], "plain_ms": block["plain_ms"], "bound_ms": block["bound_ms"],
+        "bound_by": block["bound_by"], "library_ms": block["library_ms"],
+        "dependency_bound_ms": block["dependency_bound_ms"], "shape": [block["rounds"], block["banks"]],
     })
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -120,8 +120,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ntt_pair_launch.restype = I
     lib.modmul_launch.argtypes = [P, P, P, L, U, U, U, P]
     lib.modmul_launch.restype = I
-    lib.chain_fold_launch.argtypes = [P, P, L, ctypes.c_double, P]
+    D = ctypes.c_double
+    lib.chain_fold_launch.argtypes = [P, P, L, I, D, D, P]
     lib.chain_fold_launch.restype = I
+    lib.chain_fold_staged_launch.argtypes = [P, P, L, I, D, D, P]
+    lib.chain_fold_staged_launch.restype = I
+    lib.chain_fold_roundtrip.argtypes = [P, P, L, I, D, D, I, P]
+    lib.chain_fold_roundtrip.restype = I
+    lib.fold_dadd_probe_launch.argtypes = [P, L, D, D, P]
+    lib.fold_dadd_probe_launch.restype = I
     lib.repro_cuda_error_string.argtypes = [I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

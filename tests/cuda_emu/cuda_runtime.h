@@ -7,11 +7,13 @@
 // that a word read before it is written shows in the result), with a
 // std::barrier for __syncthreads().  Device intrinsics become their
 // arithmetic definitions; cudaFuncSetAttribute and cudaGetLastError
-// succeed.
+// succeed; device and host memory are one, so a copy is a memcpy, and
+// streams, events and devices have nothing to do.
 #pragma once
 
 #include <barrier>
 #include <cstdint>
+#include <cstring>
 #include <thread>
 #include <vector>
 
@@ -46,13 +48,31 @@ struct alignas(8) uint2 {
   uint32_t x, y;
 };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
+struct alignas(16) double2 {
+  double x, y;
+};
+inline double2 make_double2(double x, double y) { return {x, y}; }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
+typedef void* cudaEvent_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaMemcpyKind { cudaMemcpyHostToDevice = 1, cudaMemcpyDeviceToHost = 2 };
 inline cudaError_t cudaFuncSetAttribute(const void*, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* device) {
+  *device = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+inline cudaError_t cudaMemcpyAsync(void* dst, const void* src, size_t bytes, cudaMemcpyKind,
+                                   cudaStream_t) {
+  std::memcpy(dst, src, bytes);
+  return cudaSuccess;
+}
+inline cudaError_t cudaStreamSynchronize(cudaStream_t) { return cudaSuccess; }
+inline cudaError_t cudaEventRecord(cudaEvent_t, cudaStream_t) { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated launch error"; }
 
 template <typename... P, typename... A>

@@ -150,17 +150,79 @@ def test_modmul_emulated_matches_plain(emu_lib):
     assert same(out, kmod.modmul_plain(a, b, ctx))
 
 
-@pytest.mark.parametrize("count", [0, 1, 3, 4, 7, 1536, 3073])
-def test_chain_fold_emulated_matches_numpy(emu_lib, count):
-    """`chain_fold`'s one-thread walk against `np.cumsum` over [b0, *inc]
-    and the plain version, with `==` (lengths around its 4-wide unroll)."""
+#: (K rounds, n banks) of the chain: single bank steps and rounds, partial
+#: chunks of 32 bank steps, then chains past one segment of 1024 bank steps:
+#: 96 x 16 (the fastpath's block at 16 banks), 170 x 16, and 512 x 32 (16
+#: segments), and 3000 x 1 (more round times than are staged whole).
+CHAIN_SHAPES = [(0, 4), (1, 1), (3, 1), (2, 5), (40, 3), (96, 8), (96, 16), (170, 16), (512, 32),
+                (3000, 1)]
+
+
+def chain_case(k, n, seed):
+    """(b0, round times of mixed magnitudes, t_bus) from `seed`."""
+    rng = np.random.default_rng(seed)
+    pn = rng.uniform(0.0, 60.0, k) * rng.choice([1e-3, 1.0, 1e3], k)
+    return float(rng.uniform(0.0, 1e5)), pn, float(rng.choice([0.3, 1.25, 37.5]))
+
+
+def numpy_chain(b0, pn, n, t_bus):
+    """`np.cumsum` over [b0, pn[0], t_bus, pn[0], t_bus, ...] (each round time n times)."""
+    inc = np.empty(1 + 2 * len(pn) * n)
+    inc[0] = b0
+    inc[1::2] = np.repeat(pn, n)
+    inc[2::2] = t_bus
+    return np.cumsum(inc)
+
+
+def emulated_chain(lib, entry, b0, pn, n, t_bus):
+    """The chain from one C entry point: "kept" (`chain_fold_launch`),
+    "staged" (the form that passes the pairs through shared memory) or
+    "roundtrip" (`chain_fold_roundtrip`, on host memory as on the card)."""
+    k = len(pn)
+    src = torch.from_numpy(np.ascontiguousarray(pn, dtype=np.float64))
+    out = torch.full((1 + 2 * k * n,), float("nan"), dtype=torch.float64)
+    if entry == "roundtrip":
+        err = lib.chain_fold_roundtrip(src.data_ptr(), out.data_ptr(), k, n, t_bus, b0, 0, None)
+    else:
+        launch = lib.chain_fold_staged_launch if entry == "staged" else lib.chain_fold_launch
+        err = launch(src.data_ptr(), out.data_ptr(), k, n, t_bus, b0, None)
+    assert err == 0
+    return out.numpy()
+
+
+@pytest.mark.parametrize("k,n", CHAIN_SHAPES)
+def test_chain_fold_emulated_matches_numpy(emu_lib, k, n):
+    """`chain_fold`'s walker and helper warps, its staged form and the round
+    trip, against `np.cumsum` over the interleaved increments and the plain
+    version, with `==`; a misaligned `out` is refused."""
     from repro_torch.kernels import fold
 
-    rng = np.random.default_rng(count)
-    inc = torch.from_numpy(rng.uniform(0.0, 60.0, count) * rng.choice([1.0, 1e-3, 1e3], count))
-    b0 = float(rng.uniform(0.0, 1e5))
-    out = torch.empty(count + 1, dtype=torch.float64)
-    assert emu_lib.chain_fold_launch(inc.data_ptr(), out.data_ptr(), count, b0, None) == 0
-    exp = np.cumsum(np.concatenate([[b0], inc.numpy()]))
-    assert np.array_equal(out.numpy(), exp)
-    assert torch.equal(fold.left_fold_plain(inc, b0), out)
+    b0, pn, t_bus = chain_case(k, n, 7 * k + n)
+    exp = numpy_chain(b0, pn, n, t_bus)
+    assert np.array_equal(fold.chain_fold_plain(b0, pn, n, t_bus).numpy(), exp)
+    for entry in ("kept", "staged", "roundtrip"):
+        assert np.array_equal(emulated_chain(emu_lib, entry, b0, pn, n, t_bus), exp), entry
+    buf = torch.empty(3 + 2 * k * n, dtype=torch.float64)
+    assert emu_lib.chain_fold_launch(buf.data_ptr(), buf[1:].data_ptr(), k, n, t_bus, b0, None) != 0
+
+
+def test_dadd_probe_emulated_is_a_left_fold(emu_lib):
+    """The probe's dependent adds, against `np.cumsum`; a count not a
+    multiple of 16 is refused."""
+    out = torch.zeros(1, dtype=torch.float64)
+    assert emu_lib.fold_dadd_probe_launch(out.data_ptr(), 4096, 0.5, 0.1, None) == 0
+    assert out.item() == np.cumsum(np.concatenate([[0.5], np.full(4096, 0.1)]))[-1]
+    assert emu_lib.fold_dadd_probe_launch(out.data_ptr(), 20, 0.5, 0.1, None) != 0
+
+
+@pytest.mark.parametrize("line", range(8))
+def test_chain_fold_emulated_on_the_fastpath_grid(emu_lib, line):
+    """Every chain that the JAX package's numpy fastpath evaluates on one
+    line of the fastpath grid, through the kernel's round trip, `==` to the
+    reference's own `_numpy_chain` on the same inputs."""
+    import repro.pimsys.fastpath.evaluate as ref_eval
+    from test_torch_pimsys import FASTPATH_GRID, grid_chains
+
+    for b0, pn, n, t_bus in grid_chains(*FASTPATH_GRID[line]):
+        exp = ref_eval._numpy_chain(b0, pn, n, t_bus)
+        assert np.array_equal(emulated_chain(emu_lib, "roundtrip", b0, pn, n, t_bus), exp)

@@ -159,17 +159,44 @@ def test_rns_ct_mul_relin_and_rescale_match_cpu_path(cuda):
     assert np.array_equal(mm.to_numpy_u32(rlk.b_hat), mm.to_numpy_u32(cpu_key.b_hat))
 
 
-@pytest.mark.parametrize("count", [0, 1, 5, 3072])
-def test_chain_fold_matches_np_cumsum(cuda, count):
-    """`chain_fold` on the card: a strict left fold, `==` to `np.cumsum`."""
+def numpy_chain(b0, pn, n, t_bus):
+    """`np.cumsum` over [b0, pn[0], t_bus, pn[0], t_bus, ...] (each round time n times)."""
+    inc = np.empty(1 + 2 * len(pn) * n)
+    inc[0] = b0
+    inc[1::2] = np.repeat(pn, n)
+    inc[2::2] = t_bus
+    return np.cumsum(inc)
+
+
+@pytest.mark.parametrize("k,n", [(0, 4), (1, 1), (5, 8), (96, 16)])
+def test_chain_fold_matches_np_cumsum(cuda, k, n):
+    """`chain_fold` on the card, the round trip and the kernel alone, and its
+    staged form: a strict left fold, `==` to `np.cumsum`."""
     from repro_torch.kernels import fold
 
-    rng = np.random.default_rng(count)
-    inc = rng.uniform(0.0, 60.0, count)
+    pn = np.random.default_rng(k).uniform(0.0, 60.0, k)
+    exp = numpy_chain(12.5, pn, n, 1.25)
     fold.LAUNCHES["chain_fold"] = 0
-    got = fold.left_fold(torch.from_numpy(inc).to(cuda), 12.5).cpu().numpy()
+    assert np.array_equal(fold.chain_fold(12.5, pn, n, 1.25, cuda), exp)
     assert fold.LAUNCHES["chain_fold"] == 1
-    assert np.array_equal(got, np.cumsum(np.concatenate([[12.5], inc])))
+    x = torch.from_numpy(pn).to(cuda)
+    for staged in (False, True):
+        out = torch.empty(len(exp), dtype=torch.float64, device=cuda)
+        fold.chain_fold_cuda(x, out, 12.5, n, 1.25, staged)
+        assert np.array_equal(out.cpu().numpy(), exp), staged
+
+
+def test_chain_fold_round_trips_reuse_the_pinned_buffers(cuda):
+    """Chains of different lengths in a row (the third grows the buffers):
+    each right, and each result independent of the chains after it."""
+    from repro_torch.kernels import fold
+
+    rng = np.random.default_rng(5)
+    cases = [(3.0, rng.uniform(0.0, 60.0, 96), 16, 1.25), (7.0, rng.uniform(0.0, 9.0, 3), 2, 0.5),
+             (1.0, rng.uniform(0.0, 60.0, 512), 32, 2.5), (4.0, rng.uniform(0.0, 60.0, 5), 8, 1.25)]
+    got = [fold.chain_fold(*case, device=cuda) for case in cases]
+    for case, g in zip(cases, got):
+        assert np.array_equal(g, numpy_chain(*case))
 
 
 def test_fastpath_torch_backend_on_the_card(cuda):

@@ -216,6 +216,50 @@ FASTPATH_GRID = [(64, 1, 0, 2, True), (64, 16, 128, 2, False), (128, 3, 4, 4, Tr
                  (256, 2, 32, 4, True), (256, 8, 32, 4, True)]
 
 
+#: (chains, adds) that the numpy fastpath evaluates on each grid line (one
+#: bank takes the single-bank path, without a chain).
+GRID_CHAINS = [(0, 0), (26, 9504), (55, 3102), (12, 2720), (170, 14320), (48, 22368), (53, 2004),
+               (103, 14416)]
+
+
+def grid_chains(n, banks, entries, nb, pipelined):
+    """Every chain ``(b0, pn_blk, n, t_bus)`` that the JAX package's numpy
+    fastpath evaluates on one grid line, in order."""
+    import repro.pimsys.fastpath.evaluate as ref_eval
+    from repro.pimsys.engine import param_beat_trace as ref_param_beat_trace
+
+    chains, numpy_chain = [], ref_eval._numpy_chain
+
+    def record(b0, pn_blk, n_, t_bus):
+        chains.append((b0, np.array(pn_blk), n_, t_bus))
+        return numpy_chain(b0, pn_blk, n_, t_bus)
+
+    cfg = RefPimConfig(num_buffers=nb, param_cache_entries=entries)
+    cmds = ref_mapping.RowCentricMapper(cfg, n).commands()
+    lp = ref_pimsys.lower_commands(cfg, cmds, ref_param_beat_trace(cfg, n, cmds) if entries else None)
+    ref_eval._numpy_chain = record
+    try:
+        ref_pimsys.evaluate_gang(lp, banks, pipelined=pipelined)
+    finally:
+        ref_eval._numpy_chain = numpy_chain
+    return chains
+
+
+@pytest.mark.parametrize("line", range(len(FASTPATH_GRID)))
+def test_torch_chain_on_cpu_matches_reference_numpy_chain(line):
+    """`torch_chain(device="cpu")` (the plain version) against the JAX
+    package's own `_numpy_chain` with `==`, on every chain that its numpy
+    fastpath evaluates on one grid line; and the line's chain and add counts."""
+    import repro.pimsys.fastpath.evaluate as ref_eval
+    from repro_torch.pimsys.fastpath.torch_backend import torch_chain
+
+    chains = grid_chains(*FASTPATH_GRID[line])
+    assert (len(chains), sum(2 * len(pn) * n for _, pn, n, _ in chains)) == GRID_CHAINS[line]
+    for b0, pn, n, t_bus in chains:
+        exp = ref_eval._numpy_chain(b0, pn, n, t_bus)
+        assert np.array_equal(torch_chain(b0, pn, n, t_bus, device="cpu"), exp)
+
+
 @pytest.mark.parametrize("n,banks,entries,nb,pipelined", FASTPATH_GRID)
 def test_fastpath_torch_backend_bit_identical(n, banks, entries, nb, pipelined):
     """`backend="torch"` on the CPU (a `torch.cumsum` left fold) equals

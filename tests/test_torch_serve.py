@@ -203,9 +203,10 @@ def test_chip_smoke_lm_phase_on_cpu():
     tm = __import__("test_torch_models")  # the card's bounds are no looser than the port-vs-JAX ones
     assert all(tol <= tm.TOL_MODEL_ARCH.get(a, tm.TOL_MODEL) for a, tol in cs.LM_CARD_TOL.items())
     check = cs.check_fold(np.random.default_rng(0), "cpu")
-    assert check["max_abs_err"] == 0.0 and len(check["checks"]) == 7
+    assert check["max_abs_err"] == 0.0 and len(check["checks"]) == len(cs.FOLD_SHAPES) + 1
     fp = cs.drive_fastpath("cpu")
     assert fp["launches"] == {"chain_fold": 0}  # CPU: the plain version
+    assert fp["chains"]["count"] == 467 and fp["chains"]["adds"] == 68434 and "round_trip" not in fp
     assert [tuple(c) for c in __import__("test_torch_pimsys").FASTPATH_GRID] == list(cs.FASTPATH_GRID)
     assert len(fp["cases"]) == len(cs.FASTPATH_GRID) and all(c["bit_identical"] for c in fp["cases"])
 
