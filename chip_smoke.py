@@ -55,10 +55,11 @@ Phases, one JSON line each:
               to `backend="numpy"`, with its chains' statistics, the kernel's
               summed device time and each chain's round trip broken down
               (host prep, kernel, launch and sync); and `chain_fold` against
-              its plain version and `np.cumsum` (the round trip, the kernel
-              and its staged form), timed at 96 x 16 and 5 x 8 beside the
-              dependency bound from the `fold_dadd_probe` DADD latency and
-              the roofline bound.  The LM path launches none of B1-B3.
+              its plain version and `np.cumsum` (the round trip and the
+              kernel alone), timed at 96 x 16 and 5 x 8 on the round trip's
+              pinned buffers (as the path runs it) and on device memory,
+              beside the dependency bound from the `fold_dadd_probe` DADD
+              latency and the roofline bound.  The LM path launches none of B1-B3.
  10. train    the LM training core (`repro_torch.launch.{steps,train}`):
               (a) qwen3-4b at full size (remat, AdamW with bf16 moments) and
               (b) mamba2-780m at full size (f32 AdamW), 8 steps each at batch
@@ -1179,9 +1180,10 @@ def round_trip_breakdown(chains, device) -> dict:
     launch, the kernel reading and writing the pinned buffers, the sync), and
     `empty_call_us`, the call for a chain of no rounds (a launch and a sync
     of a kernel with nothing to walk).  `kernel_ms_sum` is the kernel's
-    device time over the grid's chains on device memory, launched back to
-    back behind a GPU sleep between two CUDA events; `kernel_us` that a
-    chain."""
+    device time over the grid's chains on pinned host memory (as the round
+    trip runs it, zero-copy), launched back to back on the round trip's
+    stream behind a GPU sleep between two CUDA events; `kernel_us` that a
+    chain; `kernel_ms_sum_device_memory` the same on device memory."""
     rt = kfold.round_trip(device)
     for c in chains[:20]:
         kfold.chain_fold(*c, device)
@@ -1204,15 +1206,34 @@ def round_trip_breakdown(chains, device) -> dict:
     for _ in chains:
         rt.run(0.0, 0, 1, 1.0)
     empty = time.perf_counter() - t0
+    held = [(torch.from_numpy(pn).pin_memory(), torch.empty(1 + 2 * len(pn) * n, dtype=torch.float64,
+                                                           pin_memory=True)) for _, pn, n, _ in chains]
+    pinned = [pinned_launch(rt, b0, len(pn), n, t_bus, x.data_ptr(), y.data_ptr())
+              for (b0, pn, n, t_bus), (x, y) in zip(chains, held)]
+    with torch.cuda.stream(rt.stream):
+        kernel_ms = _events_ms(lambda: [launch() for launch in pinned], 1, sleep_ms=len(chains) * 0.05)[0]
     inputs = [(torch.from_numpy(pn).to(device), torch.empty(1 + 2 * len(pn) * n, dtype=torch.float64,
                                                            device=device), b0, n, t_bus)
               for b0, pn, n, t_bus in chains]
-    kernel_ms = _events_ms(lambda: [kfold.chain_fold_cuda(*a) for a in inputs], 1,
+    device_ms = _events_ms(lambda: [kfold.chain_fold_cuda(*a) for a in inputs], 1,
                            sleep_ms=len(chains) * 0.05)[0]
     per = 1e6 / len(chains)
     return {"chains": len(chains), "total_us": total * per, "host_prep_us": prep * per,
             "call_us": call * per, "empty_call_us": empty * per, "kernel_us": kernel_ms * 1e3 / len(chains),
-            "kernel_ms_sum": kernel_ms}
+            "kernel_ms_sum": kernel_ms, "kernel_ms_sum_device_memory": device_ms}
+
+
+def pinned_launch(rt, b0, k, n, t_bus, src: int, dst: int):
+    """A launch of the `chain_fold` kernel alone from and into pinned host
+    memory (`src`, `dst`: pointers), on the round trip `rt`'s stream with no
+    sync: the kernel as `rt.run` launches it, without the call's sync."""
+    lib = _build.load()
+
+    def launch():
+        _build.check(lib.chain_fold_launch(src, dst, k, int(n), float(t_bus), float(b0), rt.handle),
+                     "chain_fold")
+
+    return launch
 
 
 def chain_inputs(rng, k: int, banks: int) -> tuple:
@@ -1240,7 +1261,7 @@ def check_fold(rng, device) -> dict:
     """`chain_fold` on `device` against its plain version (on the CPU, where
     `torch.cumsum` is a left fold) and `np.cumsum`, with `==`, at
     `FOLD_SHAPES`: the round trip the fastpath makes and, on the card, the
-    kernel alone on device memory, and its staged form; then four chains in
+    kernel alone on device memory; then four chains in
     a row through the round trip, each result right after the others (the
     buffers are reused)."""
     checks, err = [], 0.0
@@ -1251,10 +1272,9 @@ def check_fold(rng, device) -> dict:
         plain = kfold.chain_fold_plain(b0, pn, n, t_bus).numpy()
         got = {"round_trip": kfold.chain_fold(b0, pn, n, t_bus, device)}
         if on_card:
-            x = torch.from_numpy(pn).to(device)
-            for form, staged in (("kernel", False), ("staged", True)):
-                out = torch.empty(len(ref), dtype=torch.float64, device=device)
-                got[form] = kfold.chain_fold_cuda(x, out, b0, n, t_bus, staged).cpu().numpy()
+            out = torch.empty(len(ref), dtype=torch.float64, device=device)
+            got["kernel"] = kfold.chain_fold_cuda(torch.from_numpy(pn).to(device), out, b0, n,
+                                                  t_bus).cpu().numpy()
         for form, g in got.items():
             err = max(err, float(np.abs(g - plain).max()))
             checks.append({"rounds": k, "banks": banks, "length": len(ref), "form": form,
@@ -1291,23 +1311,30 @@ def time_dadd_probe(device) -> dict:
 
 
 def time_fold(rng, device) -> dict:
-    """`chain_fold` alone per launch at `FOLD_TIMED` on device memory, and
-    its staged form, beside the dependency bound (2*K*n dependent adds at the
+    """`chain_fold` alone per launch at `FOLD_TIMED`: `ms` on the round
+    trip's pinned buffers and stream (zero-copy, the kernel as the fastpath
+    launches it; its chain checked after), `device_memory_ms` on device
+    memory; beside the dependency bound (2*K*n dependent adds at the
     probe's DADD latency) and its share, the roofline bound (K doubles in,
     2*K*n + 1 out, at the memory rate; the adds at the FP64 rate), the plain
     version (on the CPU, host clock) and `torch.cumsum` on the card (a
-    parallel scan: the same sums, reassociated); then its time against the
-    adds at `FOLD_FIT_ROUNDS` x 16 banks, fitted to a line: the walk's ns an
-    add and the fixed cost of a launch."""
+    parallel scan: the same sums, reassociated); then its time on device
+    memory against the adds at `FOLD_FIT_ROUNDS` x 16 banks, fitted to a
+    line: the walk's ns an add and the fixed cost of a launch."""
     probe = time_dadd_probe(device)
+    rt = kfold.round_trip(device)
     shapes = {}
     for k, banks in FOLD_TIMED:
         b0, pn, n, t_bus = chain_inputs(rng, k, banks)
-        x = torch.from_numpy(pn).to(device)
-        out = torch.empty(1 + 2 * k * n, dtype=torch.float64, device=device)
-        rec = time_ms(lambda: kfold.chain_fold_cuda(x, out, b0, n, t_bus), 50)
-        staged_ms = time_ms(lambda: kfold.chain_fold_cuda(x, out, b0, n, t_bus, True), 50)["ms"]
+        length = rt.stage(pn, n)
+        with torch.cuda.stream(rt.stream):
+            rec = time_ms(pinned_launch(rt, b0, k, n, t_bus, rt.pn[1], rt.out[1]), 50)
         plain = kfold.chain_fold_plain(b0, pn, n, t_bus)
+        if not np.array_equal(rt.out[0][:length], plain.numpy()):
+            raise AssertionError(f"chain_fold on the pinned buffers differs at {k} x {banks}")
+        x = torch.from_numpy(pn).to(device)
+        out = torch.empty(length, dtype=torch.float64, device=device)
+        device_ms = time_ms(lambda: kfold.chain_fold_cuda(x, out, b0, n, t_bus), 50)["ms"]
         t0 = time.perf_counter()
         for _ in range(200):
             kfold.chain_fold_plain(b0, pn, n, t_bus)
@@ -1321,7 +1348,7 @@ def time_fold(rng, device) -> dict:
         ops_ms = adds / FP64_FLOPS * 1e3
         dep_ms = adds * probe["ns_per_dadd"] * 1e-6
         shapes[f"{k}x{banks}"] = {
-            **rec, "staged_ms": staged_ms, "plain_ms": plain_ms, "plain_device": "cpu",
+            **rec, "device_memory_ms": device_ms, "plain_ms": plain_ms, "plain_device": "cpu",
             "library_ms": lib["ms"], "library_call": "torch.cumsum(x, 0) on the card",
             "library_bit_exact": lib_exact, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "dependency_bound_ms": dep_ms,
@@ -1627,7 +1654,8 @@ def main() -> int:
         "bit_exact": fold_check["max_abs_err"] == 0,
         "ms": block["ms"], "plain_ms": block["plain_ms"], "bound_ms": block["bound_ms"],
         "bound_by": block["bound_by"], "library_ms": block["library_ms"],
-        "dependency_bound_ms": block["dependency_bound_ms"], "shape": [block["rounds"], block["banks"]],
+        "dependency_bound_ms": block["dependency_bound_ms"], "device_memory_ms": block["device_memory_ms"],
+        "shape": [block["rounds"], block["banks"]],
     })
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -123,8 +123,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     D = ctypes.c_double
     lib.chain_fold_launch.argtypes = [P, P, L, I, D, D, P]
     lib.chain_fold_launch.restype = I
-    lib.chain_fold_staged_launch.argtypes = [P, P, L, I, D, D, P]
-    lib.chain_fold_staged_launch.restype = I
     lib.chain_fold_roundtrip.argtypes = [P, P, L, I, D, D, I, P]
     lib.chain_fold_roundtrip.restype = I
     lib.fold_dadd_probe_launch.argtypes = [P, L, D, D, P]

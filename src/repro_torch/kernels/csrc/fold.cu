@@ -21,12 +21,10 @@
 //   while this one is walked.
 // - It stores the pair (B, s) of each bank step with one 16-byte store, which it does not
 //   wait on: ptxas rotates the stored registers over three groups, so an add that reuses
-//   one comes three bank steps after the store that reads it.  The staged form, kept
-//   beside it for the timing, writes the pairs to a shared-memory segment instead, which
-//   the helper warps flush with coalesced 16-byte stores while the walker fills the next:
-//   slower on the card (PERF.md).
+//   one comes three bank steps after the store that reads it.
 // - The helper warps (1-3) fill `steps` a segment ahead: segments of kSegPairs bank
-//   steps, three buffers deep, __syncthreads at each segment's edge.  The K round times
+//   steps, two buffers (the walker reads one while the helpers fill the other),
+//   __syncthreads at each segment's edge.  The K round times
 //   are staged in shared memory first when they fit (kRoundsCap), so the expansion reads
 //   no memory off the SM.
 // The pointers may be pinned host memory (the round trip's zero-copy path): the round times
@@ -42,11 +40,8 @@ constexpr int kHelperBase = 32;
 constexpr int kHelpers = kThreads - kHelperBase;
 constexpr int kChunk = 32;                      // bank steps walked from registers at a time
 constexpr int kSegPairs = 1024;                 // bank steps (2048 adds) in a segment
-constexpr int kBuffers = 3;                     // segments of `steps` in flight
 constexpr int kRoundsCap = 2048;                // round times staged whole, up to this
-constexpr size_t kSmemBytes = sizeof(double) * (kRoundsCap + kBuffers * kSegPairs);  // 40 KiB
-// The staged form's two segments of pairs, after those.
-constexpr size_t kStagedSmemBytes = kSmemBytes + sizeof(double) * 2 * 2 * kSegPairs;  // 72 KiB
+constexpr size_t kSmemBytes = sizeof(double) * (kRoundsCap + 2 * kSegPairs);  // 32 KiB
 // pairs = K * n is held in an int: at most 2^30 bank steps (a chain of 16 GiB).
 constexpr long long kMaxPairs = 1LL << 30;
 
@@ -116,23 +111,12 @@ __device__ __forceinline__ void walk_segment(double& B, const double* steps, dou
   }
 }
 
-// The staged form: a helper's share of segment g's pairs, from shared memory to
-// out[2 * g * kSegPairs ...], 16 bytes a thread.
-__device__ __forceinline__ void flush_pairs(const double2* seg, double* __restrict__ out, int g,
-                                            int pairs, int h) {
-  double2* dst = reinterpret_cast<double2*>(out) + static_cast<long long>(g) * kSegPairs;
-  const int np = segment_pairs(g, pairs);
-  for (int i = h; i < np; i += kHelpers) dst[i] = seg[i];
-}
-
-template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
     chain_fold_kernel(const double* __restrict__ pn, double* __restrict__ out, int rounds, int n,
                       int pairs, double t_bus, double b0) {
   extern __shared__ __align__(16) uint32_t fold_smem[];
   double* staged = reinterpret_cast<double*>(fold_smem);  // the round times, when they fit
-  double* steps = staged + kRoundsCap;                    // kBuffers x kSegPairs
-  double2* segs = reinterpret_cast<double2*>(steps + kBuffers * kSegPairs);  // staged: 2 x kSegPairs
+  double* steps = staged + kRoundsCap;                    // 2 x kSegPairs
   const int tid = threadIdx.x;
   const int h = tid - kHelperBase;
   const int nseg = (pairs + kSegPairs - 1) / kSegPairs;
@@ -148,18 +132,13 @@ __global__ void __launch_bounds__(kThreads)
   double B = b0;  // the walker's running sum
   for (int g = 0; g < nseg; ++g) {
     if (tid == 0) {
-      double2* dst = kStaged ? segs + (g & 1) * kSegPairs
-                             : reinterpret_cast<double2*>(out) + static_cast<long long>(g) * kSegPairs;
-      walk_segment(B, steps + g % kBuffers * kSegPairs, dst, segment_pairs(g, pairs), t_bus);
-    } else if (h >= 0) {
-      if (kStaged && g > 0) flush_pairs(segs + ((g - 1) & 1) * kSegPairs, out, g - 1, pairs, h);
-      if (g + 1 < nseg)
-        expand(src, steps + (g + 1) % kBuffers * kSegPairs, g + 1, pairs, n, h, kHelpers);
+      double2* dst = reinterpret_cast<double2*>(out) + static_cast<long long>(g) * kSegPairs;
+      walk_segment(B, steps + (g & 1) * kSegPairs, dst, segment_pairs(g, pairs), t_bus);
+    } else if (h >= 0 && g + 1 < nseg) {
+      expand(src, steps + ((g + 1) & 1) * kSegPairs, g + 1, pairs, n, h, kHelpers);
     }
     __syncthreads();
   }
-  if (kStaged && nseg > 0 && h >= 0)
-    flush_pairs(segs + ((nseg - 1) & 1) * kSegPairs, out, nseg - 1, pairs, h);
   if (tid == 0) out[2LL * pairs] = B;
 }
 
@@ -177,22 +156,13 @@ __global__ void fold_dadd_probe_kernel(double* out, long long iters, double x, d
   out[0] = acc;
 }
 
-int launch_form(bool staged, const double* pn, double* out, long long rounds, int banks,
-                double t_bus, double b0, cudaStream_t st) {
+int launch(const double* pn, double* out, long long rounds, int banks, double t_bus, double b0,
+           cudaStream_t st) {
   if (rounds < 0 || banks < 0 || (banks > 0 && rounds > kMaxPairs / banks) ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int k = static_cast<int>(rounds), pairs = static_cast<int>(rounds * banks);
-  if (staged) {  // above 48 KiB needs the opt-in (per device)
-    const cudaError_t err = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(chain_fold_kernel<true>),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kStagedSmemBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    chain_fold_kernel<true><<<1, kThreads, kStagedSmemBytes, st>>>(pn, out, k, banks, pairs, t_bus,
-                                                                  b0);
-  } else {
-    chain_fold_kernel<false><<<1, kThreads, kSmemBytes, st>>>(pn, out, k, banks, pairs, t_bus, b0);
-  }
+  chain_fold_kernel<<<1, kThreads, kSmemBytes, st>>>(pn, out, k, banks, pairs, t_bus, b0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -204,14 +174,7 @@ extern "C" {
 // 16-byte aligned), on `stream`; both on the card or in pinned host memory.
 int chain_fold_launch(const double* pn, double* out, long long rounds, int banks, double t_bus,
                       double b0, void* stream) {
-  return launch_form(false, pn, out, rounds, banks, t_bus, b0, static_cast<cudaStream_t>(stream));
-}
-
-// `chain_fold_launch` in the staged form (the pairs through shared memory), for the timing
-// beside it.
-int chain_fold_staged_launch(const double* pn, double* out, long long rounds, int banks,
-                             double t_bus, double b0, void* stream) {
-  return launch_form(true, pn, out, rounds, banks, t_bus, b0, static_cast<cudaStream_t>(stream));
+  return launch(pn, out, rounds, banks, t_bus, b0, static_cast<cudaStream_t>(stream));
 }
 
 // One chain on `device`'s `stream` from pinned host memory to pinned host memory, read and
@@ -223,8 +186,7 @@ int chain_fold_roundtrip(const double* host_pn, double* host_out, long long roun
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err == cudaSuccess)
-    err = static_cast<cudaError_t>(
-        launch_form(false, host_pn, host_out, rounds, banks, t_bus, b0, st));
+    err = static_cast<cudaError_t>(launch(host_pn, host_out, rounds, banks, t_bus, b0, st));
   if (err == cudaSuccess) err = cudaStreamSynchronize(st);
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);

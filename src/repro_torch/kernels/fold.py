@@ -7,15 +7,15 @@ as numpy, each with its adds in order, bit-identical to `np.cumsum` over the
 interleaved increments (the evaluator's `_numpy_chain`).
 
 On the card a chain is one round trip through two pinned host buffers kept per
-device (the round times, the chain; grown on demand, never allocated per call):
+card (the round times, the chain; grown on demand, never allocated per call):
 the round times are written to the first, `chain_fold` (`csrc/fold.cu`) reads
 them and writes the chain to the second itself (zero-copy: no copy in or out),
-and one stream sync ends it, all in one call into the kernels' library; then a
-numpy copy, since the next chain reuses the buffer.  On the CPU it runs the
-plain version, `torch.cumsum` over the increments, which adds in order there.
-`torch.cumsum` on CUDA is a parallel scan that reassociates the adds, so it is
-never taken for the card.  `chain_fold_cuda` launches the kernel alone on
-tensors on a device.
+and one sync of the round trip's own stream ends it, all in one call into the
+kernels' library; then a numpy copy, since the next chain reuses the buffer.
+On the CPU it runs the plain version, `torch.cumsum` over the increments,
+which adds in order there.  `torch.cumsum` on CUDA is a parallel scan that
+reassociates the adds, so it is never taken for the card.  `chain_fold_cuda`
+launches the kernel alone on tensors on the card.
 """
 from __future__ import annotations
 
@@ -44,15 +44,16 @@ def chain_fold_plain(b0: float, pn_blk, n: int, t_bus: float) -> torch.Tensor:
 
 
 class RoundTrip:
-    """One card's pinned buffers for the chain's round trip, with the device
-    index and the stream (PyTorch's current stream at the first chain), fixed
-    then.  The kernel reads and writes the buffers in place, through the host
-    pointers (unified addressing)."""
+    """One card's pinned buffers for the chain's round trip, and a stream of
+    its own that the chains run on, whatever stream the caller has made
+    current (a chain reads and writes nothing but these buffers, and ends
+    with a sync of that stream).  The kernel reads and writes the buffers in
+    place, through the host pointers (unified addressing)."""
 
-    def __init__(self, device: torch.device):
-        index = device.index if device.index is not None else torch.cuda.current_device()
+    def __init__(self, index: int):
         self.device = torch.device("cuda", index)
-        self.stream = torch.cuda.current_stream(self.device).cuda_stream
+        self.stream = torch.cuda.Stream(self.device)
+        self.handle = self.stream.cuda_stream
         self.lib = _build.load()
         self.lock = threading.Lock()  # the library call lets go of the GIL
         self.pn = self.out = None
@@ -80,7 +81,7 @@ class RoundTrip:
     def run(self, b0: float, k: int, n: int, t_bus: float) -> None:
         """The launch and the sync of a chain of k rounds staged in the buffers."""
         err = self.lib.chain_fold_roundtrip(self.pn[1], self.out[1], k, int(n), float(t_bus),
-                                            float(b0), self.device.index, self.stream)
+                                            float(b0), self.device.index, self.handle)
         _build.check(err, "chain_fold")
         LAUNCHES["chain_fold"] += 1
 
@@ -95,16 +96,17 @@ _ROUND_TRIPS: dict = {}
 
 
 def round_trip(device) -> RoundTrip | None:
-    """The round trip of `device` (None: the card), made at its first chain;
-    None for the CPU."""
-    rt = _ROUND_TRIPS.get(device)
+    """The round trip of `device` (None: the current card), one per card, made
+    at its first chain; None for the CPU."""
+    dev = resolve(device)
+    if dev.type == "cpu":
+        return None
+    if dev.type != "cuda":
+        raise ValueError(f"chain_fold runs on the card or the CPU, not {dev}")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    rt = _ROUND_TRIPS.get(index)
     if rt is None:
-        dev = resolve(device)
-        if dev.type == "cpu":
-            return None
-        if dev.type != "cuda":
-            raise ValueError(f"chain_fold runs on the card or the CPU, not {dev}")
-        rt = _ROUND_TRIPS.setdefault(device, RoundTrip(dev))
+        rt = _ROUND_TRIPS.setdefault(index, RoundTrip(index))
     return rt
 
 
@@ -118,33 +120,25 @@ def chain_fold(b0: float, pn_blk, n: int, t_bus: float, device=None) -> np.ndarr
     return rt.chain(b0, pn_blk, n, t_bus)
 
 
-def chain_fold_cuda(pn: torch.Tensor, out: torch.Tensor, b0: float, n: int, t_bus: float,
-                    staged: bool = False) -> torch.Tensor:
+def chain_fold_cuda(pn: torch.Tensor, out: torch.Tensor, b0: float, n: int, t_bus: float) -> torch.Tensor:
     """The chain over round times `pn` (K float64) x `n` banks into `out`
-    (1 + 2*K*n float64, 16-byte aligned) on their device: on the card the
-    kernel alone on the current stream (`staged`: in the form that passes the
-    pairs through shared memory, for the timing beside it); on the CPU the
-    plain version."""
+    (1 + 2*K*n float64, 16-byte aligned), both on the card: the kernel alone
+    on the current stream.  The fastpath goes through `chain_fold`."""
     for name, t in (("pn", pn), ("out", out)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
         if t.dtype != torch.float64 or t.dim() != 1 or not t.is_contiguous():
             raise TypeError(f"{name} must be a contiguous 1-d float64 tensor")
+    if not pn.is_cuda:
+        raise ValueError(f"chain_fold_cuda runs on CUDA tensors, not {pn.device}")
     if out.device != pn.device:
         raise ValueError(f"out is on {out.device}, expected {pn.device}")
     if out.numel() != 1 + 2 * pn.numel() * n:
         raise ValueError(f"out holds {out.numel()} values, the chain {1 + 2 * pn.numel() * n}")
-    if pn.is_cuda:
-        lib = _build.load()
-        args = (pn.data_ptr(), out.data_ptr(), pn.numel(), int(n), float(t_bus), float(b0),
-                _build.stream_handle(pn.device))
-        with torch.cuda.device(pn.device):
-            launch = lib.chain_fold_staged_launch if staged else lib.chain_fold_launch
-            err = launch(*args)
-        _build.check(err, "chain_fold")
-        LAUNCHES["chain_fold"] += 1
-    elif pn.device.type == "cpu":
-        out.copy_(chain_fold_plain(b0, pn.numpy(), n, t_bus))
-    else:
-        raise ValueError(f"chain_fold runs on CUDA or CPU tensors, not {pn.device}")
+    lib = _build.load()
+    with torch.cuda.device(pn.device):
+        err = lib.chain_fold_launch(pn.data_ptr(), out.data_ptr(), pn.numel(), int(n), float(t_bus),
+                                    float(b0), _build.stream_handle(pn.device))
+    _build.check(err, "chain_fold")
+    LAUNCHES["chain_fold"] += 1
     return out

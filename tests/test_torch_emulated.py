@@ -175,8 +175,7 @@ def numpy_chain(b0, pn, n, t_bus):
 
 
 def emulated_chain(lib, entry, b0, pn, n, t_bus):
-    """The chain from one C entry point: "kept" (`chain_fold_launch`),
-    "staged" (the form that passes the pairs through shared memory) or
+    """The chain from one C entry point: "kernel" (`chain_fold_launch`) or
     "roundtrip" (`chain_fold_roundtrip`, on host memory as on the card)."""
     k = len(pn)
     src = torch.from_numpy(np.ascontiguousarray(pn, dtype=np.float64))
@@ -184,23 +183,22 @@ def emulated_chain(lib, entry, b0, pn, n, t_bus):
     if entry == "roundtrip":
         err = lib.chain_fold_roundtrip(src.data_ptr(), out.data_ptr(), k, n, t_bus, b0, 0, None)
     else:
-        launch = lib.chain_fold_staged_launch if entry == "staged" else lib.chain_fold_launch
-        err = launch(src.data_ptr(), out.data_ptr(), k, n, t_bus, b0, None)
+        err = lib.chain_fold_launch(src.data_ptr(), out.data_ptr(), k, n, t_bus, b0, None)
     assert err == 0
     return out.numpy()
 
 
 @pytest.mark.parametrize("k,n", CHAIN_SHAPES)
 def test_chain_fold_emulated_matches_numpy(emu_lib, k, n):
-    """`chain_fold`'s walker and helper warps, its staged form and the round
-    trip, against `np.cumsum` over the interleaved increments and the plain
+    """`chain_fold`'s walker and helper warps, launched alone and through the
+    round trip, against `np.cumsum` over the interleaved increments and the plain
     version, with `==`; a misaligned `out` is refused."""
     from repro_torch.kernels import fold
 
     b0, pn, t_bus = chain_case(k, n, 7 * k + n)
     exp = numpy_chain(b0, pn, n, t_bus)
     assert np.array_equal(fold.chain_fold_plain(b0, pn, n, t_bus).numpy(), exp)
-    for entry in ("kept", "staged", "roundtrip"):
+    for entry in ("kernel", "roundtrip"):
         assert np.array_equal(emulated_chain(emu_lib, entry, b0, pn, n, t_bus), exp), entry
     buf = torch.empty(3 + 2 * k * n, dtype=torch.float64)
     assert emu_lib.chain_fold_launch(buf.data_ptr(), buf[1:].data_ptr(), k, n, t_bus, b0, None) != 0
@@ -219,10 +217,13 @@ def test_dadd_probe_emulated_is_a_left_fold(emu_lib):
 def test_chain_fold_emulated_on_the_fastpath_grid(emu_lib, line):
     """Every chain that the JAX package's numpy fastpath evaluates on one
     line of the fastpath grid, through the kernel's round trip, `==` to the
-    reference's own `_numpy_chain` on the same inputs."""
+    reference's own `_numpy_chain` on the same inputs; and the line's chain
+    and add counts (line 0, one bank, evaluates no chain)."""
     import repro.pimsys.fastpath.evaluate as ref_eval
-    from test_torch_pimsys import FASTPATH_GRID, grid_chains
+    from test_torch_pimsys import FASTPATH_GRID, GRID_CHAINS, grid_chains
 
-    for b0, pn, n, t_bus in grid_chains(*FASTPATH_GRID[line]):
+    chains = grid_chains(*FASTPATH_GRID[line])
+    assert (len(chains), sum(2 * len(pn) * n for _, pn, n, _ in chains)) == GRID_CHAINS[line]
+    for b0, pn, n, t_bus in chains:
         exp = ref_eval._numpy_chain(b0, pn, n, t_bus)
         assert np.array_equal(emulated_chain(emu_lib, "roundtrip", b0, pn, n, t_bus), exp)

@@ -170,8 +170,8 @@ def numpy_chain(b0, pn, n, t_bus):
 
 @pytest.mark.parametrize("k,n", [(0, 4), (1, 1), (5, 8), (96, 16)])
 def test_chain_fold_matches_np_cumsum(cuda, k, n):
-    """`chain_fold` on the card, the round trip and the kernel alone, and its
-    staged form: a strict left fold, `==` to `np.cumsum`."""
+    """`chain_fold` on the card, the round trip and the kernel alone: a
+    strict left fold, `==` to `np.cumsum`."""
     from repro_torch.kernels import fold
 
     pn = np.random.default_rng(k).uniform(0.0, 60.0, k)
@@ -179,11 +179,9 @@ def test_chain_fold_matches_np_cumsum(cuda, k, n):
     fold.LAUNCHES["chain_fold"] = 0
     assert np.array_equal(fold.chain_fold(12.5, pn, n, 1.25, cuda), exp)
     assert fold.LAUNCHES["chain_fold"] == 1
-    x = torch.from_numpy(pn).to(cuda)
-    for staged in (False, True):
-        out = torch.empty(len(exp), dtype=torch.float64, device=cuda)
-        fold.chain_fold_cuda(x, out, 12.5, n, 1.25, staged)
-        assert np.array_equal(out.cpu().numpy(), exp), staged
+    out = torch.empty(len(exp), dtype=torch.float64, device=cuda)
+    fold.chain_fold_cuda(torch.from_numpy(pn).to(cuda), out, 12.5, n, 1.25)
+    assert np.array_equal(out.cpu().numpy(), exp)
 
 
 def test_chain_fold_round_trips_reuse_the_pinned_buffers(cuda):
@@ -197,6 +195,21 @@ def test_chain_fold_round_trips_reuse_the_pinned_buffers(cuda):
     got = [fold.chain_fold(*case, device=cuda) for case in cases]
     for case, g in zip(cases, got):
         assert np.array_equal(g, numpy_chain(*case))
+
+
+def test_chain_fold_round_trip_is_one_per_card_on_its_own_stream(cuda):
+    """None, "cuda" and "cuda:<current>" share one round trip, which runs on
+    its own stream: a chain made under another current stream is right."""
+    from repro_torch.kernels import fold
+
+    index = torch.cuda.current_device()
+    rt = fold.round_trip(None)
+    assert rt is fold.round_trip("cuda") is fold.round_trip(torch.device("cuda", index))
+    pn = np.random.default_rng(9).uniform(0.0, 60.0, 40)
+    with torch.cuda.stream(torch.cuda.Stream(cuda)):
+        got = fold.chain_fold(2.0, pn, 3, 1.25, cuda)
+    assert rt.handle != torch.cuda.current_stream(cuda).cuda_stream
+    assert np.array_equal(got, numpy_chain(2.0, pn, 3, 1.25))
 
 
 def test_fastpath_torch_backend_on_the_card(cuda):

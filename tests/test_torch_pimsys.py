@@ -260,6 +260,20 @@ def test_torch_chain_on_cpu_matches_reference_numpy_chain(line):
         assert np.array_equal(torch_chain(b0, pn, n, t_bus, device="cpu"), exp)
 
 
+def test_chain_fold_on_the_cpu_is_the_plain_version_and_the_kernel_refuses_it():
+    """On the CPU `chain_fold` has no round trip and runs the plain version;
+    `chain_fold_cuda`, the kernel alone, refuses CPU tensors."""
+    from repro_torch.kernels import fold
+
+    pn = np.random.default_rng(3).uniform(0.0, 60.0, 7)
+    assert fold.round_trip("cpu") is None
+    assert np.array_equal(fold.chain_fold(5.0, pn, 4, 1.25, "cpu"),
+                          fold.chain_fold_plain(5.0, pn, 4, 1.25).numpy())
+    out = torch.empty(1 + 2 * 7 * 4, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fold.chain_fold_cuda(torch.from_numpy(pn), out, 5.0, 4, 1.25)
+
+
 @pytest.mark.parametrize("n,banks,entries,nb,pipelined", FASTPATH_GRID)
 def test_fastpath_torch_backend_bit_identical(n, banks, entries, nb, pipelined):
     """`backend="torch"` on the CPU (a `torch.cumsum` left fold) equals
