@@ -74,6 +74,25 @@ Phases, one JSON line each:
               the state it saved; (d) loss and every grad of the ten reduced
               archs, card against CPU on the same weights.  The path
               launches none of the port's kernels.
+ 11. dist     the distribution layer (`repro_torch.distributed`,
+              `launch.{mesh,steps,dryrun}`) with NCCL at world size 1,
+              met through a `file://` store in a temporary directory, on a
+              1 x 1 (data, model) `DeviceMesh` on the card: (a) qwen3-4b at
+              full width with phase 10's weights and batch (batch 4 x seq
+              512, remat, bf16 AdamW moments): `compressed_psum` and
+              `hierarchical_grad_sync` over NCCL on step 1's grads, equal
+              to `ef_decompress` of their codes, then the unsharded step 1
+              (its loss, params and moments copied to the host) and
+              `make_sharded_train_step` on `DTensor` state from the same
+              seed: the loss and every updated leaf equal bit for bit (at
+              world size 1 every collective is an identity), then steps
+              2-8 timed (CUDA events), tokens/s and peak memory; (b) the
+              dry-run sweep, all 40 cells of the 16 x 16 mesh
+              (`python -m repro_torch.launch.dryrun --all`) in a child
+              interpreter on the host, beside (a): its host seconds, the
+              counts of run / skip / FAIL cells (a FAIL fails the phase) and
+              each cell's roofline row.  The path launches none of the
+              port's kernels.
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises (exit code != 0).
 Imports nothing of `jax` or `repro`.
@@ -92,6 +111,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from datetime import timedelta
 
 import numpy as np
 import torch
@@ -118,6 +138,15 @@ from repro_torch.pimsys import (  # noqa: E402
     verify_stream,
 )
 from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
+from repro_torch.distributed.compression import (  # noqa: E402
+    compressed_psum,
+    ef_compress,
+    ef_decompress,
+    hierarchical_grad_sync,
+)
+from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, make_mesh  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.configs.registry import ARCH_NAMES, get_config  # noqa: E402
 from repro_torch.data.pipeline import SyntheticStream  # noqa: E402
@@ -227,6 +256,11 @@ TRAIN_LOOP_STEPS = ([*range(10)], [10, 11, 12, 10, 11, 12, 13, 14, 15])
 #: jamba 0.153, whose bf16 router ties break another way on the card, so
 #: that one token's routing and every grad behind it differ).
 TRAIN_CARD_TOL = {"*": 0.052, "jamba-1.5-large-398b": 0.31}
+#: The dist phase's sharded steps: phase 10's qwen3-4b run (moments, batch,
+#: seq) on a 1 x 1 mesh, steps 1..DIST_STEPS, steps 2.. timed.
+DIST_ARCH, DIST_MOMENTS, DIST_STEPS = "qwen3-4b", "bfloat16", 8
+#: The dry-run sweep's time limit (host seconds, a child interpreter).
+DRYRUN_TIMEOUT_S = 300
 KERNEL_INFO = {
     "ntt_tile": ("src/repro_torch/kernels/csrc/ntt.cu", "src/repro/kernels/ntt.py:77"),
     "ntt_pair": ("src/repro_torch/kernels/csrc/ntt.cu", "src/repro/kernels/ntt.py:127"),
@@ -1506,6 +1540,209 @@ def train_card_vs_cpu(cfg, device, batch: int = 2, seq: int = 16, seed: int = SE
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the distribution layer
+# ---------------------------------------------------------------------------
+
+
+class one_rank_world:
+    """A process group of this process alone (NCCL on the card, gloo on the
+    CPU), met through a `file://` store in a temporary directory, destroyed
+    on exit."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def __enter__(self):
+        self.tmp = tempfile.TemporaryDirectory()
+        backend = "nccl" if self.device.type == "cuda" else "gloo"
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device.index or 0)
+        torch.distributed.init_process_group(backend, init_method=f"file://{self.tmp.name}/store", rank=0,
+                                             world_size=1, timeout=timedelta(seconds=60))
+        return self
+
+    def __exit__(self, *exc):
+        torch.distributed.destroy_process_group()
+        self.tmp.cleanup()
+
+
+def check_compression(grads, mesh, pods) -> dict:
+    """`compressed_psum` over the mesh's data group and
+    `hierarchical_grad_sync` over a (pod, data) mesh, leaf by leaf: at world
+    size 1 each must equal `ef_decompress` of the leaf's own codes (the
+    int32 sum of one rank's codes is that rank's), bit for bit; the whole
+    tree's sync timed once."""
+    group = mesh.get_group("data")
+    bad = []
+    for path, g in leaves_with_path(grads):
+        want = ef_decompress(*ef_compress(g, torch.zeros((), dtype=torch.float32, device=g.device))[:2])
+        if not torch.equal(compressed_psum(g, group), want):
+            bad.append(f"compressed_psum {keystr(path)}")
+        if not torch.equal(hierarchical_grad_sync({"g": g}, pods)["g"], want):
+            bad.append(f"hierarchical_grad_sync {keystr(path)}")
+        del want
+    on_card = pods.device_type == "cuda"
+    t0 = time.perf_counter()
+    if on_card:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    synced = hierarchical_grad_sync(grads, pods)
+    if on_card:
+        ev[1].record()
+    _sync(pods.device_type)
+    ms = ev[0].elapsed_time(ev[1]) if on_card else (time.perf_counter() - t0) * 1e3
+    out = {"leaves": len(leaves(grads)), "elements": sum(g.numel() for g in leaves(grads)),
+           "mismatches": bad, "tree_sync_ms": ms}
+    del synced
+    if bad:
+        raise AssertionError(f"compression over {pods.device_type}: {bad}")
+    return out
+
+
+def timed_step(step_fn, params, opt_state, batch, step, device):
+    """One step: (params, opt_state, metrics, ms), timed with CUDA events
+    on the card, the host clock elsewhere."""
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    t0 = time.perf_counter()
+    params, opt_state, m = step_fn(params, opt_state, batch, step)
+    if on_card:
+        ev[1].record()
+    _sync(device)
+    return params, opt_state, m, ev[0].elapsed_time(ev[1]) if on_card else (time.perf_counter() - t0) * 1e3
+
+
+def drive_dist_step(device, arch: str = DIST_ARCH, moments: str = DIST_MOMENTS, batch: int = TRAIN_BATCH,
+                    seq: int = TRAIN_SEQ, steps: int = DIST_STEPS, reduced: bool = False, seed: int = SEED) -> dict:
+    """Phase 11 (a), inside a one-rank world: step 1's grads through the
+    collectives (`check_compression`); `steps` unsharded steps
+    (`make_train_step`), step 1's loss, grad norm, params and moments copied
+    to the host; then the same seed's state as `DTensor`s on a 1 x 1 mesh
+    and `steps` steps of `make_sharded_train_step`: step 1's loss, grad norm
+    and every leaf must equal the unsharded step's bit for bit.  Steps
+    2..`steps` of both are timed alike (CUDA events on the card), one after
+    the other in this process with nothing else running.  Launch counts are
+    reset before and read after the sharded steps."""
+    on_card = torch.device(device).type == "cuda"
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    opt_cfg = OptConfig(moment_dtype=moments, warmup_steps=1, total_steps=steps + 1)
+    mesh = make_host_mesh(data=1, model=1, device=device)
+    pods = make_mesh(("pod", "data"), (1, 1), device)
+    host_id, num_hosts = steps_lib.data_parallel_rank(mesh)
+    stream = SyntheticStream(cfg, batch, seq, seed=seed, host_id=host_id, num_hosts=num_hosts)
+
+    def init_params():  # the same values at every call
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return T.init_params(cfg, gen, device)
+
+    def init_state():
+        params = init_params()
+        return params, steps_lib.make_opt_init(cfg, opt_cfg)(params)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    b1 = to_device(stream.batch_at(1), device)
+    grads = steps_lib.loss_and_grads(cfg, init_params(), b1)[2]  # the params go once their grads are taken
+    compression = check_compression(grads, mesh, pods)
+    del grads
+    params, opt_state = init_state()
+    step_fn = steps_lib.make_train_step(cfg, opt_cfg)
+    unsharded_ms = []
+    for step in range(1, steps + 1):
+        b = b1 if step == 1 else to_device(stream.batch_at(step), device)
+        params, opt_state, m, ms = timed_step(step_fn, params, opt_state, b, step, device)
+        unsharded_ms.append(ms)
+        if step == 1:
+            ref = [t.to("cpu", copy=True) for t in leaves((params, opt_state))]  # steps 2.. update in place
+            ref_metrics = {k: float(m[k]) for k in ("loss", "grad_norm", "lr")}
+    del params, opt_state, m, step_fn
+    free()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    state = init_state()
+    shardings = (shd.param_shardings(mesh, state[0]), shd.opt_shardings(mesh, state[1]))
+    params, opt_state = shd.distribute_tree(state, shardings)
+    del state
+    step_fn = steps_lib.make_sharded_train_step(cfg, opt_cfg, mesh)
+    kernels.reset_launch_counts()
+    rows = []
+    for step in range(1, steps + 1):
+        b = b1 if step == 1 else to_device(stream.batch_at(step), device)
+        params, opt_state, m, ms = timed_step(step_fn, params, opt_state, b, step, device)
+        rows.append({"step": step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "ms": ms})
+        if step == 1:
+            got = leaves((params, opt_state))
+            unequal = [i for i, (a, r) in enumerate(zip(got, ref)) if not torch.equal(a.to_local(), r.to(device))]
+            equal = {"leaves": len(ref), "unequal_leaves": unequal, "loss": rows[0]["loss"] == ref_metrics["loss"],
+                     "grad_norm": rows[0]["grad_norm"] == ref_metrics["grad_norm"],
+                     "lr": float(m["lr"]) == ref_metrics["lr"]}
+            del ref, got
+    launches = port_launches()
+    ms = [r["ms"] for r in rows[1:]]
+    step_ms, plain_ms = float(np.median(ms)), float(np.median(unsharded_ms[1:]))
+    out = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model, "moment_dtype": moments,
+           "params": sum(p.numel() for p in leaves(params)), "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "backend": torch.distributed.get_backend(), "batch": batch, "seq": seq, "steps": rows,
+           "unsharded_step1": ref_metrics, "equal_to_unsharded": equal, "compression": compression,
+           "launches": launches, "first_step_ms": rows[0]["ms"], "step_ms": step_ms,
+           "step_ms_spread": [min(ms), max(ms)], "tokens_per_s": batch * seq / step_ms * 1e3,
+           "unsharded_step_ms": plain_ms, "unsharded_step_ms_all": unsharded_ms,
+           "sharded_over_unsharded": step_ms / plain_ms,
+           "placements": sorted({str(p.placements) for p in leaves(params)})}
+    if on_card:
+        out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    del params, opt_state, step_fn
+    free()
+    if equal["unequal_leaves"] or not (equal["loss"] and equal["grad_norm"] and equal["lr"]) or any(launches.values()):
+        raise AssertionError(f"dist: the sharded step differs from the unsharded one: {equal}, launches {launches}")
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows):
+        raise AssertionError(f"dist: non-finite steps {rows}")
+    return out
+
+
+def run_dryrun_sweep(report_dir: str, args=("--all",)) -> dict:
+    """`python -m repro_torch.launch.dryrun` in a child interpreter on the
+    host (a fake world of 256 ranks, meta tensors: no card), killed past
+    `DRYRUN_TIMEOUT_S`; then its records: counts by status and each run
+    cell's roofline row (H100 data-sheet rates).  A FAIL or a non-zero exit
+    fails the phase."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--report-dir", report_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    recs = []
+    for name in sorted(os.listdir(report_dir)):
+        with open(os.path.join(report_dir, name)) as f:
+            recs.append(json.load(f))
+    status = collections.Counter("FAIL" if r["status"].startswith("FAIL") else r["status"].split(":")[0]
+                                 for r in recs)
+    cells = []
+    for r in recs:
+        row = roofline.analyze_cell(r)
+        cell = {"cell": f"{r['arch']}__{r['shape']}", "status": r["status"][:300]}
+        if row:
+            cell.update({k: row[k] for k in ("compute_s", "memory_s", "collective_s", "dominant", "useful_ratio",
+                                             "roofline_fraction", "peak_gib")},
+                        pass_s=r["pass_s"], counts=r["collectives"]["counts"])
+        cells.append(cell)
+    res = {"cells": len(recs), "status": dict(status), "host_seconds": seconds, "exit_code": proc.returncode,
+           "roofline_table": cells}
+    if proc.returncode != 0 or status.get("FAIL"):
+        raise AssertionError(f"dry-run sweep failed: {res}: {proc.stderr[-3000:]}")
+    return res
+
+
 def sass_summary(library: str) -> dict | None:
     """Per kernel of the built library, its SASS instruction count by
     opcode class, from `cuobjdump -sass` where the toolkit has it."""
@@ -1627,6 +1864,19 @@ def main() -> int:
     emit({"phase": "train", "part": "done", "seconds": time.perf_counter() - t_train,
           "card": nvidia_smi("name,power.limit,power.draw,clocks.sm,temperature.gpu")})
 
+    # phase 11: the distribution layer; the dry-run sweep runs on the host after the card's part
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_dist = time.perf_counter()
+    with one_rank_world(device):
+        dist_run = drive_dist_step(device)
+    emit({"phase": "dist", "part": "sharded_step", **dist_run})
+    with tempfile.TemporaryDirectory() as report_dir:
+        dryrun_sweep = run_dryrun_sweep(report_dir)
+    emit({"phase": "dist", "part": "dryrun_sweep", **dryrun_sweep})
+    emit({"phase": "dist", "part": "done", "seconds": time.perf_counter() - t_dist,
+          "card": nvidia_smi("name,power.limit,power.draw,clocks.sm,temperature.gpu")})
+
     big = timing[f"{MAIN_SHAPES[0][0]}x{MAIN_SHAPES[0][1]}"]
     rows = []
     for kname, (source, replaces) in KERNEL_INFO.items():
@@ -1638,7 +1888,8 @@ def main() -> int:
                                  "rns ct_mul_relin + rescale": rns["launches"][kname],
                                  "pimsys CtMulRelinOp run": pim["card"]["launches"][kname],
                                  "lm serve": sum(r["launches"][kname] for r in lm_serves),
-                                 "train": sum(r["launches"][kname] for r in train_runs)},
+                                 "train": sum(r["launches"][kname] for r in train_runs),
+                                 "dist": dist_run["launches"][kname]},
             "bit_exact": checked["max_abs_err"][kname] == 0,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -1650,7 +1901,8 @@ def main() -> int:
         "replaces": "src/repro/pimsys/fastpath/jax_backend.py:39 (_scan_chain, a lax.scan, not Pallas)",
         "launches": fastpath["launches"]["chain_fold"], "max_abs_err": fold_check["max_abs_err"],
         "launches_by_path": {"fastpath evaluate_gang grid": fastpath["launches"]["chain_fold"],
-                             "train": sum(r["launches"]["chain_fold"] for r in train_runs)},
+                             "train": sum(r["launches"]["chain_fold"] for r in train_runs),
+                             "dist": dist_run["launches"]["chain_fold"]},
         "bit_exact": fold_check["max_abs_err"] == 0,
         "ms": block["ms"], "plain_ms": block["plain_ms"], "bound_ms": block["bound_ms"],
         "bound_by": block["bound_by"], "library_ms": block["library_ms"],

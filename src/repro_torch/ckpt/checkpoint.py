@@ -20,6 +20,14 @@ copies the leaves to host memory synchronously (the copies are the
 snapshot: training may go on updating the tensors in place) and writes in
 a daemon thread; `wait()` joins before the next save to bound in-flight
 state.
+
+Sharded state: each `DTensor` leaf in turn is gathered whole (a collective
+every rank takes part in); rank 0 alone keeps a host copy, the other ranks
+drop the gathered leaf at once.  Rank 0 writes before `save` returns, and
+the other ranks wait for it at a barrier, so `blocking=False` has no effect
+on a sharded state.  Checkpoints hold whole (logical) arrays,
+so `restore(..., mesh=, shardings=)` re-shards them for the current mesh,
+whatever mesh saved them (the reference's elastic restore).
 """
 from __future__ import annotations
 
@@ -30,9 +38,12 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve
-from repro_torch.tree import keystr, leaves_with_path, unflatten
+from repro_torch.distributed import sharding as shd
+from repro_torch.tree import keystr, leaves, leaves_with_path, unflatten
 
 
 def _leaf_key(path) -> str:
@@ -64,6 +75,22 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, state, blocking: bool = True, extra: dict | None = None):
+        """Write `state` as step `step`: in a thread when not `blocking`.
+        A sharded state (`DTensor` leaves) is written by rank 0 alone
+        before `save` returns on any rank, whatever `blocking` says."""
+        if any(isinstance(x, DTensor) for x in leaves(state)):
+            self.wait()
+            keep = dist.get_rank() == 0
+            host_leaves = []
+            for p, x in leaves_with_path(state):
+                whole = x.full_tensor() if isinstance(x, DTensor) else x
+                if keep:
+                    host_leaves.append((_leaf_key(p), *_to_numpy(whole)))
+                del whole  # one gathered leaf at a time, and on rank 0 alone a host copy
+            if keep:
+                self._write(step, host_leaves, extra or {})
+            dist.barrier()
+            return
         host_leaves = [(_leaf_key(p), *_to_numpy(x)) for p, x in leaves_with_path(state)]
         self.wait()
         if blocking:
@@ -114,10 +141,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, example_state, device=None):
+    def restore(self, step: int, example_state, device=None, mesh=None, shardings=None):
         """Restore into the structure of `example_state` (shapes must match;
         its leaves may be on the `meta` device), cast to its dtypes, on
-        `device` (the card when None)."""
+        `device` (the card when None).  With a `DeviceMesh` `mesh`, every
+        leaf comes back as a `DTensor` on it, each rank keeping its own
+        shard: placed by the spec of the `NamedSharding` at the leaf's place
+        in `shardings` (the rule tables, over `mesh` or any mesh of its
+        axes), or replicated when `shardings` is None."""
         dev = resolve(device)
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
@@ -130,4 +161,8 @@ class CheckpointManager:
             if tuple(t.shape) != tuple(ex.shape):
                 raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)}, expected {tuple(ex.shape)}")
             arrays.append(t.to(dev, ex.dtype))
+        if mesh is not None:
+            specs = [shd.P()] * len(arrays) if shardings is None else [
+                sharding.spec for _, sharding in leaves_with_path(shardings)]
+            arrays = [shd.distribute(t, mesh, shd.placements(mesh, spec)) for t, spec in zip(arrays, specs)]
         return unflatten(example_state, arrays), manifest

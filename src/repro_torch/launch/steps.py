@@ -1,22 +1,34 @@
 """Step functions: the port of the JAX package's `repro/launch/steps.py`
-(training, and serving's prefill and decode).
+(training, and serving's prefill and decode), and their abstract inputs.
 
 The reference's steps are pure functions for `jax.jit`; here they run
 eagerly over the same param dict.  The train step takes grads with torch
 autograd (for `jax.value_and_grad`) and updates params and optimizer
 state in place (the reference donates them); the decode step writes the
-caches in place.  `param_specs` / `opt_specs` are the state's shapes and
-dtypes on the `meta` device (for `jax.eval_shape`), with no allocation.
+caches in place.  `param_specs`, `opt_specs`, `batch_specs`, `cache_specs`
+and `input_specs` are the inputs' shapes and dtypes on the `meta` device
+(for `jax.eval_shape` / `ShapeDtypeStruct`), with no allocation.
+
+`make_sharded_train_step` is the step over `DTensor` state placed by the
+sharding rules (the reference gets its sharded step from `jax.jit` with
+in/out shardings): data parallel over the dp axes, with the params and
+optimizer state sharded (FSDP); the model axis computes redundantly.
 """
 from __future__ import annotations
 
-import torch
+import math
 
-from repro_torch.configs.base import ModelConfig
+import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optim import OptConfig, make_optimizer
-from repro_torch.tree import leaves, tree_map, unflatten
+from repro_torch.optim.optimizers import square_sum
+from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 # ---------------------------------------------------------------------------
 # training
@@ -70,6 +82,137 @@ def opt_specs(cfg: ModelConfig, opt_cfg: OptConfig):
     return make_opt_init(cfg, opt_cfg)(param_specs(cfg))
 
 
+def _all_reduce_sum(x: torch.Tensor, groups) -> torch.Tensor:
+    """`x` summed over each process group in turn (over every rank of
+    their product)."""
+    for g in groups:
+        x = funcol.wait_tensor(funcol.all_reduce(x, "sum", g))
+    return x
+
+
+def _sharded_mean(mesh, place):
+    """Adafactor's `mean(x, dim, keepdim)` over a dim of a param sharded by
+    `place`: the local sum over the ranks that shard that dim, divided by
+    the whole dim; `torch.mean` itself where no rank splits the dim."""
+
+    def mean(x, dim, keepdim=False):
+        pdim = x.dim() + dim  # vr's dim -1 is the param's dim -2
+        groups = [mesh.get_group(i) for i, p in enumerate(place) if p.is_shard(pdim) and mesh.size(i) > 1]
+        if not groups:
+            return torch.mean(x, dim, keepdim=keepdim)
+        n = x.shape[dim] * math.prod(g.size() for g in groups)
+        total = _all_reduce_sum(torch.sum(x, dim, keepdim=keepdim), groups)
+        return total / torch.tensor(float(n), dtype=total.dtype, device=total.device)
+
+    return mean
+
+
+def _aligned_state(opt_state, params, mesh):
+    """(the optimizer state as the update reads it, write-backs): each
+    leaf's local tensor in its param's layout (AdamW's moments and
+    Adafactor's unfactored `v`: the param's placements; Adafactor's `vr` /
+    `vc`: the param's without its dim -1 / -2).  The in-place updates reach
+    a leaf placed so through its `to_local()`; a leaf placed otherwise (the
+    rules replicate the factors of most weights) is redistributed for the
+    update, and the write-backs list (DTensor, update's placements, updated
+    tensor) to redistribute back into it."""
+    write_back = []
+
+    def one(path, d):
+        node, i = params, 1  # path[0] is the state's "m" / "v"
+        while isinstance(node, (dict, list)):
+            node, i = node[path[i]], i + 1
+        removed = {"vr": node.dim() - 1, "vc": node.dim() - 2}.get(path[i]) if i < len(path) else None
+        place = []
+        for p in node.placements:
+            if not p.is_shard() or p.dim == removed:
+                place.append(Replicate())
+            else:
+                place.append(Shard(p.dim - (removed is not None and p.dim > removed)))
+        if place == list(d.placements):
+            return d.to_local()
+        t = d.redistribute(mesh, place).to_local()
+        write_back.append((d, place, t))
+        return t
+
+    flat = [one(path, d) for path, d in leaves_with_path(opt_state)]
+    return unflatten(opt_state, flat), write_back
+
+
+def data_parallel_rank(mesh) -> tuple[int, int]:
+    """(this rank's index, the count) over the mesh's dp axes, major to
+    minor: the host id and host count of its data stream."""
+    rank, size = 0, 1
+    coord = mesh.get_coordinate()
+    for a in shd.dp_axes(mesh):
+        i = mesh.mesh_dim_names.index(a)
+        rank, size = rank * mesh.size(i) + coord[i], size * mesh.size(i)
+    return rank, size
+
+
+def make_sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh):
+    """The train step over `DTensor` params and optimizer state on the
+    `DeviceMesh` `mesh`, placed by `param_shardings` / `opt_shardings`
+    (`sharding.distribute_tree`), and this rank's batch shard (a dict of
+    tensors: `SyntheticStream(host_id, num_hosts)` from `data_parallel_rank`).
+
+    Each step gathers the whole model, takes `loss_and_grads` on the rank's
+    batch, reduces the grads over the dp axes into the params' placements
+    (a reduce-scatter where a param is sharded over them), takes the clip's
+    global norm as an all-reduce of the shards' sums of squares, and updates
+    the local shards in place.  Returns (params, opt_state, metrics), the
+    metrics' loss the mean over the dp ranks.  At world size 1 every
+    collective is an identity and the step computes what `make_train_step`
+    computes, bit for bit."""
+    _, update = make_optimizer(opt_cfg)
+    dp_dims = [mesh.mesh_dim_names.index(a) for a in shd.dp_axes(mesh)]
+    dp_groups = [mesh.get_group(i) for i in dp_dims]
+    dp_size = math.prod(mesh.size(i) for i in dp_dims)
+    all_groups = [mesh.get_group(i) for i in range(mesh.ndim)]
+    partial = [Partial() if i in dp_dims else Replicate() for i in range(mesh.ndim)]
+
+    def reduce_grad(g, param):
+        """The sum over the dp ranks of each rank's `g / dp_size`, as this
+        rank's shard in `param`'s placements."""
+        if dp_size > 1:
+            g = g.div_(torch.tensor(float(dp_size), dtype=g.dtype, device=g.device))
+        d = DTensor.from_local(g, mesh, partial, run_check=False)
+        return d.redistribute(mesh, param.placements).to_local()
+
+    def replicas(place) -> int:
+        return math.prod(mesh.size(i) for i, p in enumerate(place) if not p.is_shard())
+
+    def train_step(params, opt_state, batch, step):
+        loss, metrics, grads = loss_and_grads(cfg, tree_map(lambda d: d.full_tensor(), params), batch)
+        flat_p = leaves(params)
+        with torch.no_grad():
+            flat_g = leaves(grads)
+            del grads
+            local_g = []
+            for i, p in enumerate(flat_p):
+                local_g.append(reduce_grad(flat_g[i], p))
+                flat_g[i] = None  # drop the whole grad once its shard is kept
+            sums = []
+            for g, p in zip(local_g, flat_p):  # a leaf replicated r times is summed r times below
+                r = replicas(p.placements)
+                sums.append(square_sum(g) if r == 1 else square_sum(g) / r)
+            norm = torch.sqrt(_all_reduce_sum(torch.sum(torch.stack(sums)), all_groups))
+            means = [_sharded_mean(mesh, p.placements) for p in flat_p]
+            state, write_back = _aligned_state(opt_state, params, mesh)
+            *_, opt_metrics = update(unflatten(params, local_g), state, tree_map(lambda d: d.to_local(), params),
+                                     step, norm=norm, means=means)
+            for d, place, t in write_back:
+                d.to_local().copy_(DTensor.from_local(t, mesh, place, run_check=False)
+                                   .redistribute(mesh, d.placements).to_local())
+            metrics = dict(metrics, loss=loss)
+            if dp_size > 1:
+                n = torch.tensor(float(dp_size), device=loss.device)
+                metrics = {k: _all_reduce_sum(v, dp_groups) / n for k, v in metrics.items()}
+        return params, opt_state, dict(metrics, **opt_metrics)
+
+    return train_step
+
+
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
@@ -87,3 +230,53 @@ def make_decode_step(cfg: ModelConfig):
         return T.decode_step(params, cfg, token, caches, pos)
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# abstract specs (meta tensors, no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.max_target_len:
+        s = min(s, cfg.max_target_len)
+    out = {"tokens": _meta((b, s), torch.int32)}
+    if cfg.num_image_tokens:
+        out["image_embeds"] = _meta((b, cfg.num_image_tokens, cfg.d_model), torch.float32)
+    if cfg.encoder_layers:
+        out["frames"] = _meta((b, cfg.encoder_seq, cfg.d_model), torch.float32)
+    return out
+
+
+def cache_specs(cfg: ModelConfig, batch: int, cache_len: int):
+    enc_len = cfg.encoder_seq or cfg.num_image_tokens or 0
+    return T.init_cache(cfg, batch, cache_len, enc_len, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, opt_cfg: OptConfig | None = None) -> dict:
+    """All abstract inputs for the step implied by shape.kind."""
+    opt_cfg = opt_cfg or OptConfig()
+    if shape.kind == "train":
+        return {
+            "params": param_specs(cfg),
+            "opt_state": opt_specs(cfg, opt_cfg),
+            "batch": batch_specs(cfg, shape),
+            "step": _meta((), torch.int32),
+        }
+    if shape.kind == "prefill":
+        return {"params": param_specs(cfg), "batch": batch_specs(cfg, shape)}
+    if shape.kind == "decode":
+        b = shape.global_batch
+        s = min(shape.seq_len, cfg.max_target_len) if cfg.max_target_len else shape.seq_len
+        return {
+            "params": param_specs(cfg),
+            "token": _meta((b,), torch.int32),
+            "caches": cache_specs(cfg, b, s),
+            "pos": _meta((), torch.int32),
+        }
+    raise ValueError(shape.kind)

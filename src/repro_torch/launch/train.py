@@ -11,10 +11,15 @@ Behaviours, as in the reference:
     injected fault) rolls back to the last checkpoint and retries with
     the same data, bounded by `max_retries`;
   * straggler accounting: a per-step deadline; steps exceeding it are
-    logged and counted.
-The reference's mesh (sharded state, elastic re-mesh) is not ported: the
-state lives on one `device`, the card unless the caller asks for another,
-and without a card `train` raises.  The train step updates params and
+    logged and counted;
+  * elastic re-mesh: checkpoints are whole arrays, so a restart under a
+    different mesh re-shards on load.
+Without `mesh` the state lives on one `device`, the card unless the caller
+asks for another (without a card `train` raises).  With a `DeviceMesh`
+`mesh` (every rank of the initialised process group calls `train`) the
+params and optimizer state are `DTensor`s placed by the sharding rules,
+each rank reads its dp shard of the stream, and the step is
+`steps.make_sharded_train_step`.  The train step updates params and
 optimizer state in place, so a failed step may leave them half updated;
 the rollback restores both from the checkpoint.
 """
@@ -33,6 +38,7 @@ from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import SyntheticStream
 from repro_torch.device import resolve
+from repro_torch.distributed import sharding as shd
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.serve import _sync, to_device
 from repro_torch.models import transformer as T
@@ -65,6 +71,7 @@ def train(
     step_deadline_s: float = 120.0,
     seed: int = 0,
     injector: FaultInjector | None = None,
+    mesh=None,
     log_every: int = 10,
     device=None,
 ):
@@ -76,16 +83,23 @@ def train(
     if reduced and isinstance(arch, str):
         cfg = cfg.reduced()
     opt_cfg = OptConfig(total_steps=steps, warmup_steps=max(1, steps // 20))
-    stream = SyntheticStream(cfg, batch, seq, seed=seed)
     mgr = CheckpointManager(ckpt_dir)
     injector = injector or FaultInjector()
     example = (steps_lib.param_specs(cfg), steps_lib.opt_specs(cfg, opt_cfg))
-    train_step = steps_lib.make_train_step(cfg, opt_cfg)
+    shardings = None
+    if mesh is None:
+        stream = SyntheticStream(cfg, batch, seq, seed=seed)
+        train_step = steps_lib.make_train_step(cfg, opt_cfg)
+    else:
+        host_id, num_hosts = steps_lib.data_parallel_rank(mesh)
+        stream = SyntheticStream(cfg, batch, seq, seed=seed, host_id=host_id, num_hosts=num_hosts)
+        train_step = steps_lib.make_sharded_train_step(cfg, opt_cfg, mesh)
+        shardings = (shd.param_shardings(mesh, example[0]), shd.opt_shardings(mesh, example[1]))
 
     start_step = 0
     latest = mgr.latest_step()
     if latest is not None:
-        (params, opt_state), _ = mgr.restore(latest, example, dev)
+        (params, opt_state), _ = mgr.restore(latest, example, dev, mesh, shardings)
         start_step = latest
         print(f"[train] resumed from checkpoint step {latest}")
     else:
@@ -93,6 +107,8 @@ def train(
         gen.manual_seed(seed)
         params = T.init_params(cfg, gen, dev)
         opt_state = steps_lib.make_opt_init(cfg, opt_cfg)(params)
+        if mesh is not None:
+            params, opt_state = shd.distribute_tree((params, opt_state), shardings)
         mgr.save(0, (params, opt_state))
 
     # -- loop ----------------------------------------------------------------
@@ -118,7 +134,7 @@ def train(
             print(f"[train] step {step} failed ({e}); rolling back to ckpt {latest} "
                   f"(retry {retries}/{max_retries})")
             params = opt_state = None  # free the device state before the restore
-            (params, opt_state), _ = mgr.restore(latest, example, dev)
+            (params, opt_state), _ = mgr.restore(latest, example, dev, mesh, shardings)
             step = latest
             continue
         _sync(dev)

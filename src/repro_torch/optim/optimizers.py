@@ -74,16 +74,20 @@ def _scalar(value, device) -> torch.Tensor:
     return torch.as_tensor(value, dtype=F32).to(device)
 
 
+def square_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of squares of one leaf, in f32."""
+    return sum(torch.sum(torch.square(s.to(F32))) for (s,) in _slices(x))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of the sum of squares, in f32."""
-    sums = [sum(torch.sum(torch.square(s.to(F32))) for (s,) in _slices(x)) for x in leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    return torch.sqrt(torch.sum(torch.stack([square_sum(x) for x in leaves(tree)])))
 
 
-def _clip_scale(grads, max_norm):
+def _clip_scale(grads, max_norm, norm=None):
     """(the factor every grad is scaled by, the global norm): the reference's
     `_clip` without the scaled copy of the grads."""
-    norm = global_norm(grads)
+    norm = global_norm(grads) if norm is None else norm
     return torch.clamp(_scalar(max_norm, norm.device) / (norm + 1e-9), max=1.0), norm
 
 
@@ -118,14 +122,14 @@ def _adamw_leaf(g, m, v, p, scale, lr, bc1, bc2, cfg: OptConfig) -> None:
                 s.copy_(s32)
 
 
-def _adamw_update(grads, state, params, step, cfg: OptConfig):
+def _adamw_update(grads, state, params, step, cfg: OptConfig, norm=None):
     """One AdamW step, params and state updated in place and returned."""
     lr = schedule(cfg, step)
     t = torch.as_tensor(step).to("cpu", F32) + 1.0
     bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=F32), t)
     bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=F32), t)
     flat_p = leaves(params)
-    scale, gnorm = _clip_scale(grads, cfg.grad_clip)
+    scale, gnorm = _clip_scale(grads, cfg.grad_clip, norm)
     for g, m, v, p in zip(leaves(grads), leaves(state["m"]), leaves(state["v"]), flat_p):
         d = p.device
         _adamw_leaf(g, m, v, p, scale.to(d), lr.to(d), bc1.to(d), bc2.to(d), cfg)
@@ -149,7 +153,9 @@ def adafactor_init(params, cfg: OptConfig):
     return {"v": tree_map(init, params)}
 
 
-def _adafactor_leaf(g, v, p, scale, lr, cfg: OptConfig) -> None:
+def _adafactor_leaf(g, v, p, scale, lr, cfg: OptConfig, mean=torch.mean) -> None:
+    """`mean(x, dim, keepdim=False)`: the factored moments' mean over a dim
+    of `p` (or of `vr`, whose dim -1 is `p`'s dim -2)."""
     b2 = cfg.b2
     factored = p.dim() >= 2
     state = (v["vr"], v["vc"]) if factored else (v["v"],)
@@ -159,9 +165,9 @@ def _adafactor_leaf(g, v, p, scale, lr, cfg: OptConfig) -> None:
         g32 = gs.to(F32) * scale
         g2 = (g32 * g32).add_(1e-30)
         if factored:
-            vr = vs[0].mul_(b2).add_(torch.mean(g2, dim=-1) * (1 - b2))
-            vc = vs[1].mul_(b2).add_(torch.mean(g2, dim=-2) * (1 - b2))
-            vhat = vr[..., None] * vc[..., None, :] / (torch.mean(vr, dim=-1, keepdim=True)[..., None] + 1e-30)
+            vr = vs[0].mul_(b2).add_(mean(g2, -1) * (1 - b2))
+            vc = vs[1].mul_(b2).add_(mean(g2, -2) * (1 - b2))
+            vhat = vr[..., None] * vc[..., None, :] / (mean(vr, -1, keepdim=True)[..., None] + 1e-30)
         else:
             vhat = vs[0].mul_(b2).add_(g2.mul_(1 - b2))
         delta = g32.div_(torch.sqrt(vhat).add_(cfg.eps))
@@ -174,24 +180,32 @@ def _adafactor_leaf(g, v, p, scale, lr, cfg: OptConfig) -> None:
             ps.copy_(ps.to(F32) - delta)
 
 
-def _adafactor_update(grads, state, params, step, cfg: OptConfig):
+def _adafactor_update(grads, state, params, step, cfg: OptConfig, norm=None, means=None):
     """One Adafactor step, params and state updated in place and returned."""
     lr = schedule(cfg, step)
-    scale, gnorm = _clip_scale(grads, cfg.grad_clip)
-    for g, (path, p) in zip(leaves(grads), leaves_with_path(params)):
+    scale, gnorm = _clip_scale(grads, cfg.grad_clip, norm)
+    flat = leaves_with_path(params)
+    for g, (path, p), mean in zip(leaves(grads), flat, means or [torch.mean] * len(flat)):
         v = functools.reduce(operator.getitem, path, state["v"])  # the leaf's {"vr", "vc"} or {"v"}
-        _adafactor_leaf(g, v, p, scale.to(p.device), lr.to(p.device), cfg)
+        _adafactor_leaf(g, v, p, scale.to(p.device), lr.to(p.device), cfg, mean)
     return params, state, {"lr": lr, "grad_norm": gnorm}
 
 
 def make_optimizer(cfg: OptConfig):
-    """Returns (init_fn(params) -> state, update_fn(grads, state, params, step))."""
+    """Returns (init_fn(params) -> state, update_fn(grads, state, params,
+    step, norm=None, means=None)).
+
+    Where params, grads and state are each rank's shards of larger tensors
+    (`launch.steps.make_sharded_train_step`), `norm` is the grads' global
+    norm over every rank and `means` gives, per param leaf in `leaves`
+    order, the mean over a dim of the whole tensor (Adafactor's factored
+    moments; AdamW is elementwise and takes none)."""
     if cfg.optimizer == "adamw":
         return (lambda p: adamw_init(p, cfg)), (
-            lambda g, s, p, t: _adamw_update(g, s, p, t, cfg)
+            lambda g, s, p, t, norm=None, means=None: _adamw_update(g, s, p, t, cfg, norm)
         )
     if cfg.optimizer == "adafactor":
         return (lambda p: adafactor_init(p, cfg)), (
-            lambda g, s, p, t: _adafactor_update(g, s, p, t, cfg)
+            lambda g, s, p, t, norm=None, means=None: _adafactor_update(g, s, p, t, cfg, norm, means)
         )
     raise ValueError(cfg.optimizer)

@@ -246,3 +246,25 @@ def test_reduced_arch_on_the_card_matches_the_cpu(cuda, arch):
     assert out["finite"] and out["max_rel_err"] <= out["tol"]
     res = serve(arch, batch=2, prompt_len=8, gen=3)
     assert res["device"].startswith("cuda") and res["generated"].shape == (2, 3)
+
+
+NCCL_STEP = '''
+def body(rank, world, tmp):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(SRC, "..", "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    rec = cs.drive_dist_step("cuda", batch=2, seq=64, steps=3, reduced=True)
+    return {"equal": rec["equal_to_unsharded"], "backend": rec["backend"], "mismatches": rec["compression"]["mismatches"]}
+'''
+
+
+def test_sharded_step_over_nccl_equals_the_unsharded_step(cuda, tmp_path):
+    """NCCL at world size 1 (a child interpreter: the pytest process opens
+    no process group): the collectives equal the codec and the sharded step
+    equals the unsharded one bit for bit, at reduced qwen3-4b."""
+    from torch_dist import run_child
+
+    [rec] = run_child(tmp_path, NCCL_STEP, world=1, backend="nccl", timeout=300)
+    assert rec["backend"] == "nccl" and rec["mismatches"] == []
+    assert rec["equal"]["unequal_leaves"] == [] and rec["equal"]["loss"] and rec["equal"]["grad_norm"]

@@ -41,6 +41,9 @@ def test_port_files_found():
         "optim/__init__", "optim/optimizers", "data/pipeline", "ckpt/checkpoint",
         "distributed/compression", "launch/train", "launch/roofline", "tree")}
     assert train <= files
+    dist = {f"src/repro_torch/{m}.py" for m in (
+        "distributed/sharding", "launch/mesh", "launch/dryrun", "launch/perf", "launch/report_experiments")}
+    assert dist <= files
     assert len([f for f in files if f.startswith("src/repro_torch/configs/")]) == 13
 
 
@@ -65,6 +68,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.models.transformer, repro_torch.launch.serve\n"
         "import repro_torch.optim, repro_torch.data.pipeline, repro_torch.ckpt.checkpoint\n"
         "import repro_torch.distributed.compression, repro_torch.launch.train, repro_torch.launch.roofline\n"
+        "import repro_torch.distributed.sharding, repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.perf, repro_torch.launch.report_experiments\n"
         "from repro_torch.launch.steps import loss_and_grads, make_train_step, param_specs\n"
         "from repro_torch.configs.registry import ARCH_NAMES, get_config\n"
         "assert all(get_config(a).name == a for a in ARCH_NAMES)\n"
