@@ -85,8 +85,15 @@ Phases, one JSON line each:
               (its loss, params and moments copied to the host) and
               `make_sharded_train_step` on `DTensor` state from the same
               seed: the loss and every updated leaf equal bit for bit (at
-              world size 1 every collective is an identity), then steps
-              2-8 timed (CUDA events), tokens/s and peak memory; (b) the
+              world size 1 every collective is an identity), steps 2-8 timed
+              (CUDA events), tokens/s and peak memory, and one more step
+              of each under the profiler (busy ms by kernel class); then
+              the same for
+              qwen3-moe-30b-a3b at full width (128 experts, top 8,
+              d_model 2048, vocab 151936) and 4 of its 48 layers, f32
+              AdamW, without the compression check: step 1's loss, aux
+              loss, grad norm and every leaf bit-exact, both steps timed
+              alike, peak memory; (b) the
               dry-run sweep, all 40 cells of the 16 x 16 mesh
               (`python -m repro_torch.launch.dryrun --all`) in a child
               interpreter on the host, beside (a): its host seconds, the
@@ -259,6 +266,10 @@ TRAIN_CARD_TOL = {"*": 0.052, "jamba-1.5-large-398b": 0.31}
 #: The dist phase's sharded steps: phase 10's qwen3-4b run (moments, batch,
 #: seq) on a 1 x 1 mesh, steps 1..DIST_STEPS, steps 2.. timed.
 DIST_ARCH, DIST_MOMENTS, DIST_STEPS = "qwen3-4b", "bfloat16", 8
+#: The dist phase's MoE run: (arch, layers, AdamW moment dtype), at full
+#: width (128 experts, top 8) and batch 4 x seq 512: 4 of 48 layers, 3.1 x
+#: 10^9 f32 params (~50 GB with grads and f32 moments).
+DIST_MOE = ("qwen3-moe-30b-a3b", 4, "float32")
 #: The dry-run sweep's time limit (host seconds, a child interpreter).
 DRYRUN_TIMEOUT_S = 300
 KERNEL_INFO = {
@@ -1616,20 +1627,26 @@ def timed_step(step_fn, params, opt_state, batch, step, device):
 
 
 def drive_dist_step(device, arch: str = DIST_ARCH, moments: str = DIST_MOMENTS, batch: int = TRAIN_BATCH,
-                    seq: int = TRAIN_SEQ, steps: int = DIST_STEPS, reduced: bool = False, seed: int = SEED) -> dict:
-    """Phase 11 (a), inside a one-rank world: step 1's grads through the
-    collectives (`check_compression`); `steps` unsharded steps
-    (`make_train_step`), step 1's loss, grad norm, params and moments copied
-    to the host; then the same seed's state as `DTensor`s on a 1 x 1 mesh
-    and `steps` steps of `make_sharded_train_step`: step 1's loss, grad norm
-    and every leaf must equal the unsharded step's bit for bit.  Steps
-    2..`steps` of both are timed alike (CUDA events on the card), one after
-    the other in this process with nothing else running.  Launch counts are
-    reset before and read after the sharded steps."""
+                    seq: int = TRAIN_SEQ, steps: int = DIST_STEPS, reduced: bool = False, seed: int = SEED,
+                    layers: int | None = None, compression: bool = True) -> dict:
+    """Phase 11 (a), inside a one-rank world: with `compression`, step 1's
+    grads through the collectives (`check_compression`); `steps` unsharded
+    steps (`make_train_step`), step 1's loss, aux loss, grad norm, params and
+    moments copied to the host; then the same seed's state as `DTensor`s on
+    a 1 x 1 mesh and `steps` steps of `make_sharded_train_step` (its model
+    code under `parallel.sharded`): step 1's metrics and every leaf must
+    equal the unsharded step's bit for bit.  Steps 2..`steps` of both are
+    timed alike (CUDA events on the card), one after the other in this
+    process with nothing else running.  Launch counts are reset before and
+    read after the sharded steps.  On the card one more step of each runs
+    under the profiler (device busy time by kernel class).  `layers` cuts
+    the depth."""
     on_card = torch.device(device).type == "cuda"
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     opt_cfg = OptConfig(moment_dtype=moments, warmup_steps=1, total_steps=steps + 1)
     mesh = make_host_mesh(data=1, model=1, device=device)
     pods = make_mesh(("pod", "data"), (1, 1), device)
@@ -1651,9 +1668,11 @@ def drive_dist_step(device, arch: str = DIST_ARCH, moments: str = DIST_MOMENTS, 
             torch.cuda.empty_cache()
 
     b1 = to_device(stream.batch_at(1), device)
-    grads = steps_lib.loss_and_grads(cfg, init_params(), b1)[2]  # the params go once their grads are taken
-    compression = check_compression(grads, mesh, pods)
-    del grads
+    checked = None
+    if compression:
+        grads = steps_lib.loss_and_grads(cfg, init_params(), b1)[2]  # the params go once their grads are taken
+        checked = check_compression(grads, mesh, pods)
+        del grads
     params, opt_state = init_state()
     step_fn = steps_lib.make_train_step(cfg, opt_cfg)
     unsharded_ms = []
@@ -1663,7 +1682,10 @@ def drive_dist_step(device, arch: str = DIST_ARCH, moments: str = DIST_MOMENTS, 
         unsharded_ms.append(ms)
         if step == 1:
             ref = [t.to("cpu", copy=True) for t in leaves((params, opt_state))]  # steps 2.. update in place
-            ref_metrics = {k: float(m[k]) for k in ("loss", "grad_norm", "lr")}
+            ref_metrics = {k: float(m[k]) for k in ("loss", "aux", "grad_norm", "lr")}
+    if on_card:  # one more step of each, under the profiler
+        extra = to_device(stream.batch_at(steps + 1), device)
+        unsharded_prof = profile_by_class(lambda: step_fn(params, opt_state, extra, steps + 1))
     del params, opt_state, m, step_fn
     free()
     if on_card:
@@ -1679,31 +1701,36 @@ def drive_dist_step(device, arch: str = DIST_ARCH, moments: str = DIST_MOMENTS, 
     for step in range(1, steps + 1):
         b = b1 if step == 1 else to_device(stream.batch_at(step), device)
         params, opt_state, m, ms = timed_step(step_fn, params, opt_state, b, step, device)
-        rows.append({"step": step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "ms": ms})
+        rows.append({"step": step, "loss": float(m["loss"]), "aux": float(m["aux"]), "grad_norm": float(m["grad_norm"]),
+                     "ms": ms})
         if step == 1:
             got = leaves((params, opt_state))
             unequal = [i for i, (a, r) in enumerate(zip(got, ref)) if not torch.equal(a.to_local(), r.to(device))]
-            equal = {"leaves": len(ref), "unequal_leaves": unequal, "loss": rows[0]["loss"] == ref_metrics["loss"],
-                     "grad_norm": rows[0]["grad_norm"] == ref_metrics["grad_norm"],
-                     "lr": float(m["lr"]) == ref_metrics["lr"]}
+            equal = {"leaves": len(ref), "unequal_leaves": unequal,
+                     **{k: float(m[k]) == ref_metrics[k] for k in ("loss", "aux", "grad_norm", "lr")}}
             del ref, got
     launches = port_launches()
+    if on_card:
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        prof = profile_by_class(lambda: step_fn(params, opt_state, extra, steps + 1))
     ms = [r["ms"] for r in rows[1:]]
     step_ms, plain_ms = float(np.median(ms)), float(np.median(unsharded_ms[1:]))
-    out = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model, "moment_dtype": moments,
-           "params": sum(p.numel() for p in leaves(params)), "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+    out = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model, "experts": cfg.num_experts,
+           "moment_dtype": moments, "params": sum(p.numel() for p in leaves(params)),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
            "backend": torch.distributed.get_backend(), "batch": batch, "seq": seq, "steps": rows,
-           "unsharded_step1": ref_metrics, "equal_to_unsharded": equal, "compression": compression,
+           "unsharded_step1": ref_metrics, "equal_to_unsharded": equal, "compression": checked,
            "launches": launches, "first_step_ms": rows[0]["ms"], "step_ms": step_ms,
            "step_ms_spread": [min(ms), max(ms)], "tokens_per_s": batch * seq / step_ms * 1e3,
            "unsharded_step_ms": plain_ms, "unsharded_step_ms_all": unsharded_ms,
            "sharded_over_unsharded": step_ms / plain_ms,
            "placements": sorted({str(p.placements) for p in leaves(params)})}
     if on_card:
-        out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        out.update(peak_mib=peak_mib, profile=prof, unsharded_profile=unsharded_prof,
+                   busy_over_unsharded=prof["busy_ms"] / unsharded_prof["busy_ms"])
     del params, opt_state, step_fn
     free()
-    if equal["unequal_leaves"] or not (equal["loss"] and equal["grad_norm"] and equal["lr"]) or any(launches.values()):
+    if equal["unequal_leaves"] or not all(equal[k] for k in ("loss", "aux", "grad_norm", "lr")) or any(launches.values()):
         raise AssertionError(f"dist: the sharded step differs from the unsharded one: {equal}, launches {launches}")
     if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows):
         raise AssertionError(f"dist: non-finite steps {rows}")
@@ -1870,7 +1897,10 @@ def main() -> int:
     t_dist = time.perf_counter()
     with one_rank_world(device):
         dist_run = drive_dist_step(device)
-    emit({"phase": "dist", "part": "sharded_step", **dist_run})
+        emit({"phase": "dist", "part": "sharded_step", **dist_run})
+        arch, layers, moments = DIST_MOE
+        moe_run = drive_dist_step(device, arch, moments, layers=layers, compression=False)
+        emit({"phase": "dist", "part": "sharded_moe_step", **moe_run})
     with tempfile.TemporaryDirectory() as report_dir:
         dryrun_sweep = run_dryrun_sweep(report_dir)
     emit({"phase": "dist", "part": "dryrun_sweep", **dryrun_sweep})
@@ -1889,7 +1919,7 @@ def main() -> int:
                                  "pimsys CtMulRelinOp run": pim["card"]["launches"][kname],
                                  "lm serve": sum(r["launches"][kname] for r in lm_serves),
                                  "train": sum(r["launches"][kname] for r in train_runs),
-                                 "dist": dist_run["launches"][kname]},
+                                 "dist": dist_run["launches"][kname] + moe_run["launches"][kname]},
             "bit_exact": checked["max_abs_err"][kname] == 0,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -1902,7 +1932,7 @@ def main() -> int:
         "launches": fastpath["launches"]["chain_fold"], "max_abs_err": fold_check["max_abs_err"],
         "launches_by_path": {"fastpath evaluate_gang grid": fastpath["launches"]["chain_fold"],
                              "train": sum(r["launches"]["chain_fold"] for r in train_runs),
-                             "dist": dist_run["launches"]["chain_fold"]},
+                             "dist": dist_run["launches"]["chain_fold"] + moe_run["launches"]["chain_fold"]},
         "bit_exact": fold_check["max_abs_err"] == 0,
         "ms": block["ms"], "plain_ms": block["plain_ms"], "bound_ms": block["bound_ms"],
         "bound_by": block["bound_by"], "library_ms": block["library_ms"],

@@ -17,8 +17,10 @@ analyses; these numbers are the port's own and are not held to XLA's:
     `parse_collectives` reports them for the reference;
   * memory: from the local shapes (`sharding.local_shape` over the
     abstract mesh): argument, output and aliased (donated) bytes, and as
-    temporaries the port's whole-model gather (serving: plus the local
-    batch's whole caches).  No activation peak is computed on meta.
+    temporaries the params' gathered copies (train: one rep's block leaves
+    gathered over dp, model shards kept where the layers split the work,
+    the encoder, embedding and head; serving: the whole model plus the
+    local batch's whole caches).  No activation peak is computed on meta.
 
 The pass runs the step at 1 and 2 pattern repetitions (`_depth_variant`)
 and extrapolates to full depth, affine in depth as the reference does.
@@ -70,7 +72,8 @@ OPT_POLICY = {
 
 METHOD = ("fake-world pass (torch 'fake' process group, meta DTensors) at 1 and 2 pattern reps, "
           "affine in depth; flops: FlopCounterMode, matmul-class ops only; collectives: functional "
-          "collectives' bytes; memory from the local shapes, temp = the whole-model gather (serving: "
+          "collectives' bytes; memory from the local shapes, temp = the gathered params (train: one "
+          "rep over dp with model shards kept, + encoder, embedding, head; serving: the whole model "
           "+ the local batch's whole caches), no activation peak; bytes = arguments + outputs + "
           "the gathered copies written and read once")
 
@@ -266,16 +269,52 @@ def _whole_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in leaves(tree))
 
 
+def _gathered_bytes(tree, shardings, mesh, keep_model: bool) -> int:
+    """Bytes of `tree`'s leaves as the sharded train step gathers them: over
+    the dp axes, and over `model` too unless `keep_model`."""
+    drop = set(shd.dp_axes(mesh)) | (set() if keep_model else {"model"})
+
+    def kept(entry):
+        axes = tuple(a for a in shd._axes(entry) if a not in drop)
+        return axes or None
+
+    return sum(math.prod(shd.local_shape(mesh, shd.P(*map(kept, s.spec)), t.shape)) * t.element_size()
+               for t, s in _pairs(tree, shardings))
+
+
+def _train_gather_bytes(cfg, params, shardings, mesh) -> int:
+    """The sharded train step's gathered copies of the params at their peak:
+    one rep's block leaves gathered over dp (the attention, MLP and MoE
+    leaves keep their model shards; every rep's with `cfg.remat` off, whose
+    backward keeps them), the encoder's layers gathered whole, the embedding
+    gathered over dp, and the head (the tied one: the embedding redistributed
+    so that the vocab is over model)."""
+    rep = 0
+    for (mixer, _), block, sh in zip(cfg.pattern(), params["blocks"], shardings["blocks"]):
+        keep = T._MODEL_LOCAL.get(mixer, ("ffn",))
+        rep += sum(_gathered_bytes(block[k], sh[k], mesh, k in keep) for k in block) // cfg.reps
+    total = rep if cfg.remat else rep * cfg.reps
+    if "encoder" in params:
+        total += _gathered_bytes(params["encoder"]["blocks"], shardings["encoder"]["blocks"], mesh, False)
+    embed = _gathered_bytes(params["embed"], shardings["embed"], mesh, True)
+    head = _gathered_bytes(params["lm_head"], shardings["lm_head"], mesh, True) if "lm_head" in params else embed
+    return total + embed + head
+
+
 def memory_bytes(cfg, shape, mesh) -> dict:
     """The cell's memory per device from the local shapes: arguments,
     outputs, aliased outputs (donated arguments), and as temporaries the
-    whole-model gather (serving: plus the local batch's whole caches, which
-    the step holds before its model shard is kept)."""
+    params' gathered copies (train: `_train_gather_bytes`; serving: the
+    whole model, plus the local batch's whole caches, which the step holds
+    before its model shard is kept)."""
     cell = build_cell(cfg, shape, mesh)
     args = sum(_tree_bytes(cell.inputs[k], cell.in_sh[k], mesh) for k in cell.in_sh)
     outs = sum(_tree_bytes(cell.outputs[k], cell.out_sh[k], mesh) for k in cell.out_sh)
     alias = sum(_tree_bytes(cell.outputs[k], cell.out_sh[k], mesh) for k in cell.donated)
-    temp = _whole_bytes(cell.inputs["params"])
+    if cell.kind == "train":
+        temp = _train_gather_bytes(cfg, cell.inputs["params"], cell.in_sh["params"], mesh)
+    else:
+        temp = _whole_bytes(cell.inputs["params"])
     if cell.kind != "train":
         dp = math.prod(shd.axis_sizes(mesh)[a] for a in shd.dp_axes(mesh))
         caches = cell.outputs["caches"]

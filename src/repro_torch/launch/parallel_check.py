@@ -1,0 +1,190 @@
+"""The sharded train step on a (data, model) mesh of this host's cards,
+held against the single-device step on the global batch, and both timed.
+
+Each rank draws the same weights (a seeded generator on its card), takes
+step 1 of `make_train_step` on the global batch (every dp rank's rows, in
+host order) and of `make_sharded_train_step` on its own rows, and compares:
+the largest |param or state difference|, the update's error (per leaf,
+the 2-norm of the difference of the two updates over the 2-norm of the
+single-device update; the worst leaf), and the loss, aux loss and grad
+norm.  Then `--steps` more steps of each, timed alike (CUDA events around
+each step; the median of steps 2.., the first step apart).  Rank 0 prints
+one JSON line per case and writes them all to `--out`.
+
+Usage (one process per card; NCCL, met through a `file://` store):
+  python -m repro_torch.launch.parallel_check --data 2 --model 2 [--out results.json]
+  python -m repro_torch.launch.parallel_check --data 2 --model 2 --device cpu   # gloo, reduced cases
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import tempfile
+import time
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.configs.registry import get_config
+from repro_torch.data.pipeline import SyntheticStream
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import transformer as T
+from repro_torch.optim import OptConfig
+from repro_torch.tree import leaves
+
+#: (name, arch, optimizer, overrides of the full config or None for the
+#: reduced one, batch per dp rank, seq, compare every leaf): the reduced
+#: dense and MoE cases of the CPU tests, and qwen3-moe-30b-a3b at full
+#: width and 2 layers (its metrics compared, not its 1.55 x 10^9-param
+#: leaves, whose host copies would take ~37 GB a rank).
+CASES = (
+    ("qwen3-8b reduced", "qwen3-8b", "adamw", None, 4, 32, True),
+    ("qwen3-8b reduced", "qwen3-8b", "adafactor", None, 4, 32, True),
+    ("qwen3-moe reduced", "qwen3-moe-30b-a3b", "adamw", None, 4, 32, True),
+    ("qwen3-moe reduced", "qwen3-moe-30b-a3b", "adafactor", None, 4, 32, True),
+    ("qwen3-moe full width, 2 layers", "qwen3-moe-30b-a3b", "adamw", {"num_layers": 2}, 4, 512, False),
+)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _timed(fn, device):
+    """(fn's result, ms): CUDA events on a card, the host clock elsewhere."""
+    if device.type == "cuda":
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        _sync(device)
+        return out, ev[0].elapsed_time(ev[1])
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _update_err(a, b, start) -> float:
+    """The worst leaf's |(a - start) - (b - start)| / |b - start| (2-norms)."""
+    worst = 0.0
+    for x, y, z in zip(leaves(a), leaves(b), leaves(start)):
+        du, dv = x - z.float(), y.float() - z.float()
+        err, size = float(torch.linalg.vector_norm(du - dv)), float(torch.linalg.vector_norm(dv))
+        worst = max(worst, err / size if size else (0.0 if err == 0 else float("inf")))
+    return worst
+
+
+def run_case(case, mesh, device, steps: int, seed: int = 0) -> dict:
+    name, arch, optimizer, over, batch, seq, by_leaf = case
+    cfg = get_config(arch)
+    cfg = cfg.reduced() if over is None else dataclasses.replace(cfg, **over)
+    opt = OptConfig(total_steps=steps + 2, warmup_steps=1, optimizer=optimizer)
+    rank, hosts = S.data_parallel_rank(mesh)
+
+    def init():
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        params = T.init_params(cfg, gen, device)
+        return params, S.make_opt_init(cfg, opt)(params)
+
+    def batch_at(step, h):
+        return SyntheticStream(cfg, batch, seq, seed=seed, host_id=h, num_hosts=hosts).batch_at(step)
+
+    def whole(step):
+        parts = [batch_at(step, h) for h in range(hosts)]
+        return {k: torch.from_numpy(np.concatenate([p[k] for p in parts])).to(device) for k in parts[0]}
+
+    def local(step):
+        return {k: torch.from_numpy(v).to(device) for k, v in batch_at(step, rank).items()}
+
+    single = S.make_train_step(cfg, opt)
+    p, s = init()
+    host = lambda tree: [t.to("cpu", torch.float32, copy=True) for t in leaves(tree)] if by_leaf else None
+    start = host((p, s))
+    (p, s, m1), single_first = _timed(lambda: single(p, s, whole(1), 1), device)
+    ref = host((p, s))
+    single_ms = [_timed(lambda: single(p, s, whole(k), k), device)[1] for k in range(2, steps + 2)]
+    del p, s
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+    state = init()
+    dp, ds = shd.distribute_tree(state, (shd.param_shardings(mesh, state[0]), shd.opt_shardings(mesh, state[1])))
+    del state
+    sharded = S.make_sharded_train_step(cfg, opt, mesh)
+    (dp, ds, m), sharded_first = _timed(lambda: sharded(dp, ds, local(1), 1), device)
+    diff = errs = None
+    if by_leaf:
+        got = [t.full_tensor().to("cpu", torch.float32) for t in leaves((dp, ds))]
+        n = len(leaves(dp))
+        diff = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        errs = {"param": _update_err(got[:n], ref[:n], start[:n]),
+                "state": _update_err(got[n:], ref[n:], start[n:])}
+        del got
+    del ref, start
+    sharded_ms = [_timed(lambda: sharded(dp, ds, local(k), k), device)[1] for k in range(2, steps + 2)]
+    rel = {k: abs(float(m[k]) - float(m1[k])) / max(abs(float(m1[k])), 1e-30) for k in ("loss", "aux", "grad_norm")}
+    out = {"case": name, "arch": arch, "optimizer": optimizer, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "experts": cfg.num_experts, "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "batch_per_dp_rank": batch, "seq": seq, "max_abs_diff": diff, "update_err": errs,
+           "rel_diff": rel, "loss": float(m["loss"]), "single_loss": float(m1["loss"]),
+           "sharded_first_ms": sharded_first, "single_first_ms": single_first,
+           "sharded_step_ms": float(np.median(sharded_ms)), "single_step_ms": float(np.median(single_ms)),
+           "sharded_ms_all": sharded_ms, "single_ms_all": single_ms}
+    if device.type == "cuda":
+        out["sharded_peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
+    return out
+
+
+def _rank(rank, world, args, store):
+    cuda = args.device == "cuda"
+    device = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(device)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=300))
+    try:
+        mesh = make_host_mesh(data=args.data, model=args.model, device=device.type)
+        records = []
+        for case in CASES if cuda else [c for c in CASES if c[3] is None]:  # full width on cards only
+            records.append(run_case(case, mesh, device, args.steps))
+            if rank == 0:
+                print(json.dumps(records[-1]), flush=True)
+            if cuda:
+                torch.cuda.empty_cache()
+        if rank == 0 and args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(records, f, indent=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--data", type=int, default=2)
+    ap.add_argument("--model", type=int, default=2)
+    ap.add_argument("--steps", type=int, default=5, help="timed steps after step 1")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    world = args.data * args.model
+    if args.device == "cuda" and torch.cuda.device_count() < world:
+        raise SystemExit(f"{world} ranks need {world} cards; {torch.cuda.device_count()} visible")
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_rank, args=(world, args, os.path.join(tmp, "store")), nprocs=world, join=True)
+
+
+if __name__ == "__main__":
+    main()

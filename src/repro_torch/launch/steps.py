@@ -12,7 +12,8 @@ and `input_specs` are the inputs' shapes and dtypes on the `meta` device
 `make_sharded_train_step` is the step over `DTensor` state placed by the
 sharding rules (the reference gets its sharded step from `jax.jit` with
 in/out shardings): data parallel over the dp axes, with the params and
-optimizer state sharded (FSDP); the model axis computes redundantly.
+optimizer state sharded (FSDP) and gathered a rep at a time, tensor and
+expert parallel over the model axis (`distributed.parallel`).
 """
 from __future__ import annotations
 
@@ -20,9 +21,10 @@ import math
 
 import torch
 import torch.distributed._functional_collectives as funcol
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed import parallel
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -156,51 +158,54 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh):
     (`sharding.distribute_tree`), and this rank's batch shard (a dict of
     tensors: `SyntheticStream(host_id, num_hosts)` from `data_parallel_rank`).
 
-    Each step gathers the whole model, takes `loss_and_grads` on the rank's
-    batch, reduces the grads over the dp axes into the params' placements
-    (a reduce-scatter where a param is sharded over them), takes the clip's
-    global norm as an all-reduce of the shards' sums of squares, and updates
-    the local shards in place.  Returns (params, opt_state, metrics), the
-    metrics' loss the mean over the dp ranks.  At world size 1 every
-    collective is an identity and the step computes what `make_train_step`
-    computes, bit for bit."""
+    Each step runs `loss_and_grads` on the local shards inside
+    `parallel.sharded`: every rep gathers its block leaves over the dp axes
+    as it starts, the model axis splits attention, the MLP, the MoE experts
+    and the head (tensor and expert parallel), and MoE routes the global
+    batch.  The grads come out of autograd in the params' placements,
+    reduce-scattered over the dp axes that shard a leaf; this step
+    all-reduces them over the dp axes that replicate it and divides by the
+    dp size, takes the clip's global norm as an all-reduce of the shards'
+    sums of squares, and updates the local shards in place.  Returns
+    (params, opt_state, metrics), the metrics' loss the mean over the dp
+    ranks.  At world size 1 the model code runs no collective, the grad norm's
+    all-reduce is an identity, and the step computes what
+    `make_train_step` computes, bit for bit."""
     _, update = make_optimizer(opt_cfg)
     dp_dims = [mesh.mesh_dim_names.index(a) for a in shd.dp_axes(mesh)]
     dp_groups = [mesh.get_group(i) for i in dp_dims]
     dp_size = math.prod(mesh.size(i) for i in dp_dims)
     all_groups = [mesh.get_group(i) for i in range(mesh.ndim)]
-    partial = [Partial() if i in dp_dims else Replicate() for i in range(mesh.ndim)]
 
-    def reduce_grad(g, param):
-        """The sum over the dp ranks of each rank's `g / dp_size`, as this
-        rank's shard in `param`'s placements."""
+    def reduce_grad(g, place):
+        """`g`, this rank's term of the grad, summed over the dp axes that
+        replicate its leaf (the gathers' backward summed it over the others)
+        and divided by the dp size."""
+        g = _all_reduce_sum(g, [mesh.get_group(i) for i in dp_dims if not place[i].is_shard() and mesh.size(i) > 1])
         if dp_size > 1:
             g = g.div_(torch.tensor(float(dp_size), dtype=g.dtype, device=g.device))
-        d = DTensor.from_local(g, mesh, partial, run_check=False)
-        return d.redistribute(mesh, param.placements).to_local()
+        return g
 
     def replicas(place) -> int:
         return math.prod(mesh.size(i) for i, p in enumerate(place) if not p.is_shard())
 
     def train_step(params, opt_state, batch, step):
-        loss, metrics, grads = loss_and_grads(cfg, tree_map(lambda d: d.full_tensor(), params), batch)
         flat_p = leaves(params)
+        places = [tuple(p.placements) for p in flat_p]
+        local = unflatten(params, [p.to_local() for p in flat_p])
+        with parallel.sharded(mesh, unflatten(params, places)):
+            loss, metrics, grads = loss_and_grads(cfg, local, batch)
         with torch.no_grad():
-            flat_g = leaves(grads)
+            local_g = [reduce_grad(g, place) for g, place in zip(leaves(grads), places)]
             del grads
-            local_g = []
-            for i, p in enumerate(flat_p):
-                local_g.append(reduce_grad(flat_g[i], p))
-                flat_g[i] = None  # drop the whole grad once its shard is kept
             sums = []
-            for g, p in zip(local_g, flat_p):  # a leaf replicated r times is summed r times below
-                r = replicas(p.placements)
+            for g, place in zip(local_g, places):  # a leaf replicated r times is summed r times below
+                r = replicas(place)
                 sums.append(square_sum(g) if r == 1 else square_sum(g) / r)
             norm = torch.sqrt(_all_reduce_sum(torch.sum(torch.stack(sums)), all_groups))
-            means = [_sharded_mean(mesh, p.placements) for p in flat_p]
+            means = [_sharded_mean(mesh, place) for place in places]
             state, write_back = _aligned_state(opt_state, params, mesh)
-            *_, opt_metrics = update(unflatten(params, local_g), state, tree_map(lambda d: d.to_local(), params),
-                                     step, norm=norm, means=means)
+            *_, opt_metrics = update(unflatten(params, local_g), state, local, step, norm=norm, means=means)
             for d, place, t in write_back:
                 d.to_local().copy_(DTensor.from_local(t, mesh, place, run_check=False)
                                    .redistribute(mesh, d.placements).to_local())

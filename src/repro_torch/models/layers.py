@@ -6,6 +6,13 @@ layouts.  Compute runs in bf16 (params are cast at use), reductions in
 fp32, with the reference's casts at the same places, so both packages
 compute the same function.  All functions are batch-agnostic over leading
 dims of `x` (B, S, D).
+
+Inside the sharded train step (`distributed.parallel.sharded`) the
+functions take local shards and compute their own slice: attention and the
+dense MLP tensor-parallel where `model` splits their heads and hidden dim,
+MoE expert-parallel over `model` with the routing of the global batch
+(capacity, sort order and aux loss over every dp rank's tokens).  Without
+a plan, or where nothing is split, they run the single-device code.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel as P
 
 COMPUTE_DTYPE = torch.bfloat16
 F32 = torch.float32
@@ -150,8 +158,54 @@ def _sdpa(q, k, v, cfg: ModelConfig, causal: bool, q_offset=0):
     return out.reshape(b, sq, h, hd)
 
 
+def _heads(y, split: bool, n: int, hd: int, lo: int, hi: int):
+    """Heads [lo, hi) of a projection `y` of `n` heads, for this rank's own
+    compute: gathered over `model` where its columns are split there."""
+    y = P.gather_model_sum(y, -1) if split else P.copy_to_model(y)
+    return y.reshape(*y.shape[:-1], n, hd)[..., lo:hi, :]
+
+
+def _attention_tp(p, cfg: ModelConfig, x, positions, causal: bool):
+    """Self-attention with `wq`'s columns (and `wo`'s rows) split over
+    `model`: this rank's column range of the heads, whole heads for rope and
+    qk-norm (q gathered where the split cuts a head), k / v gathered whole
+    and each rank taking the kv heads its q heads use; `wo` row-parallel."""
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    rep = h // kvh
+    width = h * hd // P.current().model_size
+    c0 = P.current().model_rank * width
+    lo, hi = c0 // hd, -(-(c0 + width) // hd)  # the q heads this rank's columns touch
+    kv_split = P.model_split(p["wk"].shape[-1], kvh * hd)
+    names = ("wq", "wk", "wv") if kv_split else ("wq",)
+    # role tokens_act: x replicated over model, into the column-parallel projections
+    proj = P.column_parallel(x, *(p[w].to(COMPUTE_DTYPE) for w in names))
+    q = proj[0]
+    if c0 % hd or width % hd:
+        q = _heads(q, True, h, hd, lo, hi)
+    else:
+        q = q.reshape(*x.shape[:-1], hi - lo, hd)
+    klo, khi = lo // rep, (hi - 1) // rep + 1
+    if kv_split:
+        k, v = (_heads(y, True, kvh, hd, klo, khi) for y in proj[1:])
+    else:
+        k, v = (_heads(x @ p[w].to(COMPUTE_DTYPE), False, kvh, hd, klo, khi) for w in ("wk", "wv"))
+    if cfg.qk_norm:
+        q = rmsnorm(q, P.copy_to_model(p["q_norm"]), cfg.norm_eps)
+        k = rmsnorm(k, P.copy_to_model(p["k_norm"]), cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if lo % rep or (hi - lo) % rep:  # q heads not in whole kv groups: one kv head per q head
+        idx = torch.arange(lo, hi, device=x.device) // rep - klo
+        k, v = k[..., idx, :], v[..., idx, :]
+    out = _sdpa(q, k, v, cfg, causal=causal).reshape(*x.shape[:-1], (hi - lo) * hd)
+    out = out[..., c0 - lo * hd:c0 - lo * hd + width]
+    return P.row_parallel(out, p["wo"].to(COMPUTE_DTYPE))
+
+
 def attention(p, cfg: ModelConfig, x, positions, causal=True, kv=None):
     """Self (kv=None) or cross attention.  Returns (B, S, D)."""
+    if kv is None and P.model_split(p["wq"].shape[-1], cfg.num_heads * cfg.hd):
+        return _attention_tp(p, cfg, x, positions, causal)
     xkv = kv if kv is not None else x
     q, k, v = _project_qkv(p, cfg, x, xkv)
     if kv is None:  # self-attn: rotary on both
@@ -199,7 +253,12 @@ def mlp_init(cfg: ModelConfig, lead: tuple, generator, device, d_ff=None) -> dic
     }
 
 
-def mlp(p, x):
+def mlp(p, x, d_ff: int | None = None):
+    """SwiGLU.  With `d_ff` (the full hidden width) and `wi` / `wg` split over
+    `model`, column-parallel up-projections and a row-parallel `wo`."""
+    if d_ff is not None and P.model_split(p["wi"].shape[-1], d_ff):
+        g, i = P.column_parallel(x, p["wg"].to(COMPUTE_DTYPE), p["wi"].to(COMPUTE_DTYPE))  # role tokens_act
+        return P.row_parallel(silu(g) * i, p["wo"].to(COMPUTE_DTYPE))
     h = silu(x @ p["wg"].to(COMPUTE_DTYPE)) * (x @ p["wi"].to(COMPUTE_DTYPE))
     return h @ p["wo"].to(COMPUTE_DTYPE)
 
@@ -228,16 +287,45 @@ def _top_k(probs, k):
     return vals[..., :k], idx[..., :k]
 
 
-def _route(logits, e: int, k: int):
+def _route(logits, e: int, k: int, dp: bool = False):
     """Softmax router probs, renormalised top-k weights and experts, and the
-    Switch-style load-balancing aux loss over the token dims."""
+    Switch-style load-balancing aux loss over the token dims; with `dp`,
+    its means over every dp rank's tokens (the global batch)."""
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = _top_k(probs, k)
     top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
     lead = tuple(range(probs.dim() - 1))
-    density = torch.nn.functional.one_hot(top_e[..., 0], e).to(F32).mean(dim=lead)
-    aux = torch.sum(density * probs.mean(dim=lead)) * e
+    first = torch.nn.functional.one_hot(top_e[..., 0], e).to(F32)
+    if dp:
+        n = probs[..., 0].numel() * P.current().dp_size
+        density = P.all_reduce_dp(first.sum(dim=lead)) / n
+        aux = torch.sum(density * (P.all_reduce_dp(probs.sum(dim=lead)) / n)) * e
+    else:
+        aux = torch.sum(first.mean(dim=lead) * probs.mean(dim=lead)) * e
     return top_w, top_e, aux
+
+
+def capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Per-expert capacity for `tokens` routed together."""
+    return int(np.ceil(tokens * cfg.experts_per_token / cfg.num_experts * cfg.capacity_factor))
+
+
+def _ep(p, cfg: ModelConfig):
+    """(sharded, first expert, local experts): whether this MoE runs the
+    sharded form (dp ranks route together, or experts split over `model`),
+    and the expert range this rank computes."""
+    plan, el = P.current(), p["wi"].shape[-3]
+    if plan is None:
+        return False, 0, el
+    split = P.model_split(el, cfg.num_experts)
+    return plan.dp_size > 1 or split, plan.model_rank * el if split else 0, el
+
+
+def _experts(p, buf, eq: str):
+    """SwiGLU over the expert dim of `buf` (`eq` its einsum lead, e.g. "ec")."""
+    h = silu(torch.einsum(f"{eq}d,edf->{eq}f", buf, p["wg"].to(COMPUTE_DTYPE)))
+    h = h * torch.einsum(f"{eq}d,edf->{eq}f", buf, p["wi"].to(COMPUTE_DTYPE))  # role moe_hidden
+    return torch.einsum(f"{eq}f,efd->{eq}d", h, p["wo"].to(COMPUTE_DTYPE))
 
 
 def _sum_k(x):
@@ -250,6 +338,9 @@ def moe_local(p, cfg: ModelConfig, x, n_blocks: int | None = None):
     """Token-local MoE dispatch (`moe_dispatch="local"`): route within blocks
     of tokens; capacity is per (block, expert).  Every sort and gather is
     block-local."""
+    sharded, e0, el = _ep(p, cfg)
+    if sharded:
+        return _moe_local_sharded(p, cfg, x, e0, el, n_blocks)
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
@@ -257,7 +348,7 @@ def moe_local(p, cfg: ModelConfig, x, n_blocks: int | None = None):
     while t % nb:
         nb //= 2
     tl = t // nb
-    cap = int(np.ceil(tl * k / e * cfg.capacity_factor))
+    cap = capacity(tl, cfg)
     xt = x.reshape(nb, tl, d)
     dev = x.device
 
@@ -283,9 +374,7 @@ def moe_local(p, cfg: ModelConfig, x, n_blocks: int | None = None):
     buf = torch.where(valid.reshape(nb, e * cap, 1), buf, 0.0)
     buf = buf.reshape(nb, e, cap, d)
 
-    h = silu(torch.einsum("becd,edf->becf", buf, p["wg"].to(COMPUTE_DTYPE)))
-    h = h * torch.einsum("becd,edf->becf", buf, p["wi"].to(COMPUTE_DTYPE))
-    out_buf = torch.einsum("becf,efd->becd", h, p["wo"].to(COMPUTE_DTYPE))
+    out_buf = _experts(p, buf, "bec")
 
     # combine: token-major slot ids (int gathers) -> one d-wide gather
     flat_out = out_buf.reshape(nb, e * cap, d)
@@ -317,10 +406,13 @@ def moe(p, cfg: ModelConfig, x):
     """
     if cfg.moe_dispatch == "local":
         return moe_local(p, cfg, x)
+    sharded, e0, el = _ep(p, cfg)
+    if sharded:
+        return _moe_sharded(p, cfg, x, e0, el)
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
-    cap = int(np.ceil(t * k / e * cfg.capacity_factor))
+    cap = capacity(t, cfg)
     xt = x.reshape(t, d)
     dev = x.device
 
@@ -348,9 +440,7 @@ def moe(p, cfg: ModelConfig, x):
         buf[dest] = xt[tok_of].to(COMPUTE_DTYPE)
         buf = buf[: e * cap].reshape(e, cap, d)
 
-    h = silu(torch.einsum("ecd,edf->ecf", buf, p["wg"].to(COMPUTE_DTYPE)))
-    h = h * torch.einsum("ecd,edf->ecf", buf, p["wi"].to(COMPUTE_DTYPE))
-    out_buf = torch.einsum("ecf,efd->ecd", h, p["wo"].to(COMPUTE_DTYPE))
+    out_buf = _experts(p, buf, "ec")
 
     flat_out = out_buf.reshape(e * cap, d)
     slot = torch.where(keep, sorted_e * cap + pos_in_e, torch.zeros_like(pos_in_e))
@@ -368,4 +458,137 @@ def moe(p, cfg: ModelConfig, x):
     out = torch.zeros((t, d), dtype=COMPUTE_DTYPE, device=dev)
     for j in range(k):
         out = out + parts[:, j]
+    return out.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# MoE in the sharded step: global-batch routing, experts over model
+# ---------------------------------------------------------------------------
+
+
+def _combine_scatter(contrib, rank, k: int):
+    """The scatter-add combine of `contrib` (T, k, d), token-major: each
+    token's contributions added to zeros in the order of their sorted
+    positions `rank` (T, k), one bf16 rounding per add."""
+    by_rank = torch.argsort(rank, dim=1, stable=True)
+    parts = torch.gather(contrib, 1, by_rank[..., None].expand(contrib.shape))
+    out = torch.zeros_like(parts[:, 0])
+    for j in range(k):
+        out = out + parts[:, j]
+    return out
+
+
+def _moe_sharded(p, cfg: ModelConfig, x, e0: int, el: int):
+    """`moe` on this dp rank's tokens with the routing of the global batch:
+    capacity from the global token count, the top-k choices all-gathered
+    over dp and sorted as one (so the same assignments are kept and each
+    keeps its slot), the aux loss from global means.  This rank computes
+    experts [e0, e0 + el) on its block of the capacity slots: it fills the
+    slots whose source token it holds and reduce-scatters the (el, cap, d)
+    buffer over dp (each slot has one source, so the sum is exact), runs
+    the experts, all-gathers their outputs back, takes its own tokens'
+    slots and sums each (token, k) entry over `model` (one nonzero owner),
+    then combines as the reference does."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    plan = P.current()
+    dp, r = plan.dp_size, plan.dp_rank
+    tl = b * s
+    t = tl * dp  # the global batch's tokens
+    cap = capacity(t, cfg)
+    capp = -(-cap // dp) * dp  # padded to whole dp blocks: spare slots stay zero and are never read
+    xt = x.reshape(tl, d)
+    dev = x.device
+
+    logits = (xt @ p["router"].to(COMPUTE_DTYPE)).to(F32)
+    top_w, top_e, aux = _route(logits, e, k, dp=dp > 1)  # (tl, k)
+
+    flat_e = P.gather_dp_ints(top_e).reshape(-1)  # (t*k,), global token order
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    seg_start = torch.searchsorted(sorted_e, torch.arange(e, device=dev, dtype=sorted_e.dtype))
+    seg_end = torch.cat([seg_start[1:], seg_start.new_full((1,), t * k)])
+    pos_in_e = torch.arange(t * k, device=dev) - seg_start[sorted_e]
+    keep = pos_in_e < cap
+    tok_of = order // k
+
+    # dispatch: my experts' slots whose source token is mine, then over dp
+    gidx = seg_start[e0:e0 + el, None] + torch.arange(capp, device=dev)[None, :]  # (el, capp)
+    valid = (gidx < seg_end[e0:e0 + el, None]) & (torch.arange(capp, device=dev) < cap)
+    src = tok_of[torch.clamp(gidx, max=t * k - 1)] - r * tl
+    mine = valid & (src >= 0) & (src < tl)
+    xs = P.copy_to_model(xt) if el < e else xt
+    buf = xs.to(COMPUTE_DTYPE)[torch.clamp(src, 0, tl - 1)]
+    buf = torch.where(mine[..., None], buf, 0.0)
+    buf = P.reduce_scatter_dp(buf, 1)  # role moe_buffer: experts over model, capacity over dp
+    out_buf = P.gather_dp(_experts(p, buf, "ec"), 1)  # role moe_buffer
+
+    # combine: my tokens' assignments, token-major
+    spos = torch.argsort(order, stable=True)[r * tl * k:(r + 1) * tl * k]  # their sorted positions
+    se = sorted_e[spos]
+    here = keep[spos] & (se >= e0) & (se < e0 + el)
+    slot = torch.where(here, (se - e0) * capp + pos_in_e[spos], torch.zeros_like(spos))
+    gathered = torch.where(here[:, None], out_buf.reshape(el * capp, d)[slot], 0.0)
+    if el < e:
+        gathered = P.reduce_from_model(gathered)  # each (token, k) entry has one nonzero owner
+    contrib = (gathered * top_w.reshape(-1).to(COMPUTE_DTYPE)[:, None]).reshape(tl, k, d)
+    if cfg.moe_dispatch == "gather":
+        return _sum_k(contrib).reshape(b, s, d), aux
+    return _combine_scatter(contrib, spos.reshape(tl, k), k).reshape(b, s, d), aux
+
+
+def _moe_local_sharded(p, cfg: ModelConfig, x, e0: int, el: int, n_blocks: int | None):
+    """`moe_local` on this dp rank's tokens: the blocks of the global batch
+    (`nb` from its batch), each rank holding its own whole blocks, so the
+    routing and dispatch need no dp traffic; the aux loss from global means;
+    experts [e0, e0 + el) here, each (token, k) entry summed over `model`."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    plan = P.current()
+    dp = plan.dp_size
+    t = b * s * dp
+    nb = n_blocks or min(32, b * dp)
+    while t % nb:
+        nb //= 2
+    if nb % dp:
+        raise ValueError(f"moe_local: {nb} blocks do not split over {dp} dp ranks")
+    nbl, tl = nb // dp, t // nb
+    cap = capacity(tl, cfg)
+    xt = x.reshape(nbl, tl, d)  # role moe_tokens_local: my blocks
+    dev = x.device
+
+    logits = torch.einsum("btd,de->bte", xt, p["router"].to(COMPUTE_DTYPE)).to(F32)
+    top_w, top_e, aux = _route(logits, e, k, dp=dp > 1)
+
+    flat_e = top_e.reshape(nbl, tl * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    arange_e = torch.arange(e, device=dev, dtype=sorted_e.dtype).expand(nbl, e).contiguous()
+    seg_start = torch.searchsorted(sorted_e, arange_e)
+    seg_end = torch.cat([seg_start[:, 1:], seg_start.new_full((nbl, 1), tl * k)], dim=1)
+    pos_in_e = torch.arange(tl * k, device=dev)[None] - torch.gather(seg_start, 1, sorted_e)
+    keep = pos_in_e < cap
+    tok_of = order // k
+
+    gidx = seg_start[:, e0:e0 + el, None] + torch.arange(cap, device=dev)[None, None, :]  # (nbl, el, cap)
+    valid = gidx < seg_end[:, e0:e0 + el, None]
+    gidx = torch.clamp(gidx, max=tl * k - 1).reshape(nbl, el * cap)
+    comp_idx = torch.gather(tok_of, 1, gidx)
+    xs = P.copy_to_model(xt) if el < e else xt
+    buf = torch.gather(xs.to(COMPUTE_DTYPE), 1, comp_idx[..., None].expand(nbl, el * cap, d))
+    buf = torch.where(valid.reshape(nbl, el * cap, 1), buf, 0.0).reshape(nbl, el, cap, d)
+    out_buf = _experts(p, buf, "bec")  # role moe_buffer_local: blocks over dp, experts over model
+
+    flat_out = out_buf.reshape(nbl, el * cap, d)
+    here = keep & (sorted_e >= e0) & (sorted_e < e0 + el)
+    slot = torch.where(here, (sorted_e - e0) * cap + pos_in_e, torch.zeros_like(pos_in_e))
+    inv_order = torch.argsort(order, dim=-1, stable=True)
+    slot_tm = torch.gather(slot, 1, inv_order)
+    here_tm = torch.gather(here, 1, inv_order)
+    gathered = torch.gather(flat_out, 1, slot_tm[..., None].expand(nbl, tl * k, d))
+    gathered = torch.where(here_tm[..., None], gathered, 0.0)
+    if el < e:
+        gathered = P.reduce_from_model(gathered)  # each (token, k) entry has one nonzero owner
+    w_tm = top_w.reshape(nbl, tl * k).to(COMPUTE_DTYPE)
+    out = _sum_k((gathered * w_tm[..., None]).reshape(nbl, tl, k, d))
     return out.reshape(b, s, d), aux

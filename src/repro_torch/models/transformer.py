@@ -25,6 +25,14 @@ entry points sum bf16 products in f32 (`layers.f32_accumulation`).  With
 `cfg.remat`, `forward` recomputes each rep in the backward
 (`torch.utils.checkpoint`, the reference's `jax.checkpoint` per rep), only
 while grads are being recorded.
+
+Inside the sharded train step (`distributed.parallel.sharded`) `forward`
+and `loss_fn` take each rank's local shards: each rep gathers its block
+leaves over the dp axes as it starts (inside the remat `checkpoint`), the
+attention, MLP and MoE leaves keep their model shards (the layers split
+the work), the other mixers' leaves and the encoder's are gathered over
+`model` too and computed whole; the embedding is gathered at use, the
+head keeps the vocab split over `model` and the loss reduces over it.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.distributed import parallel as P
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.tree import tree_map
@@ -118,9 +127,14 @@ def _apply_block(cfg, mixer, ffn, p, x, positions, enc_out):
         if ffn == "moe":
             out, aux = L.moe(p["ffn"], cfg, h)
         else:
-            out = L.mlp(p["ffn"], h)
+            out = L.mlp(p["ffn"], h, cfg.d_ff)
         x = x + out
     return x, aux
+
+
+#: The block subtrees whose model shards the layers compute on in place
+#: (the rest is gathered over `model` too), by mixer.
+_MODEL_LOCAL = {"attn": ("mixer", "ffn"), "attn_nc": ("mixer", "ffn"), "attn_cross": ("mixer", "ffn")}
 
 
 def _rep_slice(stack, r):
@@ -136,11 +150,17 @@ def _rep_slices(stack, reps: int) -> list[dict]:
     return [{k: v[r] for k, v in per.items()} for r in range(reps)]
 
 
-def _apply_rep(cfg, p_slices, positions, enc_out, x, aux):
-    """One repetition of the pattern (the reference's scan body)."""
-    for i, (mixer, ffn) in enumerate(cfg.pattern()):
-        x, a = _apply_block(cfg, mixer, ffn, p_slices[i], x, positions, enc_out)
-        aux = aux + a
+def _apply_rep(cfg, plan, p_slices, positions, enc_out, x, aux):
+    """One repetition of the pattern (the reference's scan body).  In the
+    sharded step (`plan`, entered here for the remat recompute too) the
+    block's leaves are gathered over dp here, per rep."""
+    with P.use_plan(plan):
+        for i, (mixer, ffn) in enumerate(cfg.pattern()):
+            p = p_slices[i]
+            if plan is not None:  # the scan body's site (role tokens_act): this rep's leaves gathered over dp
+                p = P.gather_tree(p, plan.placements["blocks"][i], _MODEL_LOCAL.get(mixer, ("ffn",)))
+            x, a = _apply_block(cfg, mixer, ffn, p, x, positions, enc_out)
+            aux = aux + a
     return x, aux
 
 
@@ -151,6 +171,33 @@ def _positions(b, s, device):
 def _head(params):
     head = params.get("lm_head")
     return params["embed"].T if head is None else head
+
+
+def _embed(params, tokens, plan):
+    """The token embeddings, bf16; in the sharded step the table gathered
+    over dp at use, its model columns looked up here and gathered."""
+    if plan is None:
+        return params["embed"][tokens].to(COMPUTE_DTYPE)
+    place = plan.placements["embed"]
+    x = P.gather(params["embed"], place, keep_model=True)[tokens].to(COMPUTE_DTYPE)
+    if plan.model_dim is not None and place[plan.model_dim].is_shard():
+        x = P.gather_model(x, -1)
+    return x  # role tokens_act
+
+
+def _sharded_head(params, plan):
+    """This rank's head in the sharded step: (d, V / model) where the vocab
+    splits over `model` (role logits), else (d, V)."""
+    if "lm_head" in params:
+        return P.gather(params["lm_head"], plan.placements["lm_head"], keep_model=True)
+    place = plan.placements["embed"]  # tied: the table's vocab over dp, d over model
+    table = P.gather(params["embed"], place, keep_model=True)
+    i = plan.model_dim
+    if i is None or not place[i].is_shard():
+        return table.T
+    if table.shape[0] % plan.model_size:
+        return P.gather_model(table, 1).T
+    return P.vocab_to_model(table).T
 
 
 # ---------------------------------------------------------------------------
@@ -164,8 +211,10 @@ def encoder_forward(params, cfg: ModelConfig, frames):
     x = frames.to(COMPUTE_DTYPE)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     enc = params["encoder"]
+    plan = P.current()
+    place = plan.placements["encoder"]["blocks"] if plan else None
     for p in _rep_slices(enc["blocks"], cfg.encoder_layers):
-        x, _ = _apply_block(cfg, "attn_nc", "mlp", p, x, positions, None)
+        x, _ = _apply_block(cfg, "attn_nc", "mlp", P.gather_tree(p, place), x, positions, None)
     return L.rmsnorm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -181,27 +230,42 @@ def _enc_out(params, cfg, batch):
 def forward(params, cfg: ModelConfig, batch):
     """batch: tokens (B,S) [+ image_embeds | frames].  Returns (logits, aux)."""
     tokens = batch["tokens"]
-    x = params["embed"][tokens].to(COMPUTE_DTYPE)
+    plan = P.current()
+    x = _embed(params, tokens, plan)
     positions = _positions(*tokens.shape, tokens.device)
     enc_out = _enc_out(params, cfg, batch)
     aux = torch.zeros((), dtype=L.F32, device=x.device)
     blocks = [_rep_slices(stack, cfg.reps) for stack in params["blocks"]]
     remat = cfg.remat and torch.is_grad_enabled()
     for r in range(cfg.reps):
-        body = functools.partial(_apply_rep, cfg, [b[r] for b in blocks], positions, enc_out)
+        body = functools.partial(_apply_rep, cfg, plan, [b[r] for b in blocks], positions, enc_out)
         x, aux = checkpoint(body, x, aux, use_reentrant=False) if remat else body(x, aux)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x @ _head(params).to(COMPUTE_DTYPE), aux
+    if plan is None:
+        return x @ _head(params).to(COMPUTE_DTYPE), aux
+    head = _sharded_head(params, plan).to(COMPUTE_DTYPE)
+    if head.shape[1] != cfg.vocab_size:  # role logits: vocab over model
+        return P.column_parallel(x, head)[0], aux
+    return x @ head, aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """Next-token cross-entropy in f32 (+ 0.01 x the MoE aux loss).
-    Returns (loss, {"ce", "aux"})."""
+    """Next-token cross-entropy in f32 (+ 0.01 x the MoE aux loss), its
+    logsumexp's sum of exps in f64 (`parallel.logsumexp`: the same f32
+    result whether or not the vocab is split).  Returns (loss, {"ce", "aux"})."""
     logits, aux = forward(params, cfg, batch)
     targets = batch["tokens"][:, 1:].long()
     logits = logits[:, :-1].to(L.F32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    split = logits.shape[-1] != cfg.vocab_size  # the vocab split over model (the sharded step)
+    logz = P.logsumexp(logits, split)
+    if not split:
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    else:  # the gold logit from the rank that holds it
+        vl = logits.shape[-1]
+        v0 = P.current().model_rank * vl
+        here = (targets >= v0) & (targets < v0 + vl)
+        gold = torch.gather(logits, -1, torch.clamp(targets - v0, 0, vl - 1)[..., None])[..., 0]
+        gold = P.reduce_from_model(torch.where(here, gold, 0.0))
     ce = torch.mean(logz - gold)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 

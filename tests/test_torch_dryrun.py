@@ -162,6 +162,22 @@ with dryrun.fake_world(mesh) as dmesh:
                 full_coll=full["coll"]["total_bytes"], counts=ri["collective_counts"],
                 full_counts=full["coll"]["counts"], args=ri["memory"]["argument_bytes"], local=local,
                 memory=ri["memory"], opt=cell.opt_cfg.optimizer)
+# the model axis: a reduced dense and a reduced MoE train cell, per-device
+# flops on 2 x 4 against 2 x 1, and the gathered copies against the whole model
+train = ShapeConfig("t", 64, 8, "train")
+axis = {}
+for shape in ((2, 4), (2, 1)):
+    small = AbstractMesh(("data", "model"), shape)
+    with dryrun.fake_world(small) as dmesh:
+        for arch in ("qwen3-8b", "qwen3-moe-30b-a3b"):
+            cfg = dataclasses.replace(get_config(arch).reduced(), name=arch)
+            rec = axis.setdefault(arch, {})
+            rec[f"flops_{shape[1]}"] = dryrun.measure_pass(cfg, train, small, dmesh)["flops"]
+            if shape == (2, 4):
+                cell = dryrun.build_cell(cfg, train, small)
+                rec["temp"] = dryrun.memory_bytes(cfg, train, small)["temp_bytes"]
+                rec["whole"] = dryrun._whole_bytes(cell.inputs["params"])
+out["model_axis"] = axis
 print(json.dumps(out))
 '''
 
@@ -171,8 +187,14 @@ def test_mini_fake_world_pass(tmp_path):
     hybrid SSD, the encoder-decoder) at 3 reps on a 2 x 4 fake world: flops
     and collective bytes > 0; the passes at 1 and 2 reps extrapolate to the
     3-rep pass exactly; argument bytes from the local shapes equal the
-    placed local shards' bytes; donated state aliases its outputs."""
+    placed local shards' bytes; donated state aliases its outputs.  The
+    train cells of reduced qwen3-8b and qwen3-moe: per-device flops on
+    2 x 4 at most 0.6 of those on 2 x 1 (the model axis splits the work),
+    and the gathered copies (`temp_bytes`) below the whole model's bytes."""
     out = json.loads(run_child(tmp_path, MINI_PASS).strip().splitlines()[-1])
+    axis = out.pop("model_axis")
+    for arch, r in axis.items():  # the model axis splits the compute; a rep at a time is gathered
+        assert r["flops_4"] <= 0.6 * r["flops_1"] and r["temp"] < r["whole"], (arch, r)
     assert len(out) == 12
     for key, r in out.items():
         assert r["flops"] > 0 and r["coll"] > 0, key

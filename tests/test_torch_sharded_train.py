@@ -109,6 +109,12 @@ def body(rank, world, tmp):
     # and for Adafactor the factored means of the local shard alone, and the
     # state's redistributed leaves never written back
     controls = {{"noop": errs(p0, s0), "unreduced": errs(*S.make_train_step(cfg, opt)(*fresh(), local, 1)[:2])}}
+    if {model} > 1:  # the row-parallel sum over model dropped: each rank's own partial product
+        from repro_torch.distributed import parallel as P
+        row = P.row_parallel
+        P.row_parallel = lambda h, w: h @ w
+        controls["no_model_sum"] = errs(*sharded_step()[:2])
+        P.row_parallel = row
     if opt.optimizer == "adafactor":
         mean, aligned = S._sharded_mean, S._aligned_state
         S._sharded_mean = lambda mesh, place: torch.mean
@@ -146,8 +152,9 @@ def test_sharded_step_matches_single_device(tmp_path, qwen3_8b_weights, optimize
     whole batch, the update itself within `TOL_UPDATE` of its update, and
     its loss (the mean over the dp ranks) within the port-vs-reference loss
     bound of the reference's single-device loss.  Planted wrong updates (none,
-    the grads not reduced over the dp ranks, and for Adafactor the local
-    shard's means and no state write-backs) must fail `TOL_UPDATE`."""
+    the grads not reduced over the dp ranks, the row-parallel sum over model
+    dropped, and for Adafactor the local shard's means and no state
+    write-backs) must fail `TOL_UPDATE`."""
     weights, ref_loss = qwen3_8b_weights
     os.symlink(weights, tmp_path / "weights")
     out = run_child(tmp_path, STEP_CHILD.format(arch="qwen3-8b", optimizer=optimizer, data=2, model=2),
@@ -155,7 +162,8 @@ def test_sharded_step_matches_single_device(tmp_path, qwen3_8b_weights, optimize
     for r in out:
         assert r["param_diff"] <= TOL_SHARDED and r["state_diff"] <= TOL_SHARDED, r
         assert max(r["update_err"].values()) <= TOL_UPDATE, r
-        expected = {"noop", "unreduced"} | ({"local_mean", "no_write_back"} if optimizer == "adafactor" else set())
+        expected = {"noop", "unreduced", "no_model_sum"} | ({"local_mean", "no_write_back"} if optimizer == "adafactor"
+                                                             else set())
         assert set(r["controls"]) == expected, r
         for name, err in r["controls"].items():
             assert max(err.values()) > TOL_UPDATE, (name, r)
@@ -322,19 +330,25 @@ cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
 with cs.one_rank_world("cpu"):
     rec = cs.drive_dist_step("cpu", batch=2, seq=32, steps=3, reduced=True)
+    arch, layers, moments = cs.DIST_MOE
+    moe = cs.drive_dist_step("cpu", arch, moments, batch=2, seq=32, steps=3, reduced=True, compression=False)
 with tempfile.TemporaryDirectory() as d:
     sweep = cs.run_dryrun_sweep(d, ("--arch", "qwen3-8b", "--shape", "long_500k"))
-print(json.dumps({"step": rec, "sweep": sweep}))
+print(json.dumps({"step": rec, "moe": moe, "sweep": sweep}))
 '''
 
 
 def test_chip_smoke_dist_phase_on_cpu(tmp_path):
-    """`chip_smoke.py`'s dist phase rehearsed at reduced qwen3-4b in a
-    one-rank gloo world (a child interpreter): the collectives equal the
-    codec, the sharded step 1 equals the unsharded one bit for bit, no
-    kernel of the port launches; the sweep's plumbing on a skipped cell."""
+    """`chip_smoke.py`'s dist phase rehearsed at reduced qwen3-4b and reduced
+    qwen3-moe in a one-rank gloo world (a child interpreter): the
+    collectives equal the codec, the sharded step 1 equals the unsharded
+    one bit for bit (the MoE's aux loss too), no kernel of the port
+    launches; the sweep's plumbing on a skipped cell."""
     out = json.loads(run_child(tmp_path, DIST_PHASE).strip().splitlines()[-1])
-    rec, sweep = out["step"], out["sweep"]
+    rec, moe, sweep = out["step"], out["moe"], out["sweep"]
+    assert moe["equal_to_unsharded"]["unequal_leaves"] == [] and moe["compression"] is None
+    assert all(moe["equal_to_unsharded"][k] for k in ("loss", "aux", "grad_norm", "lr")), moe
+    assert moe["experts"] == 4 and moe["steps"][0]["aux"] > 0 and moe["launches"] == rec["launches"]
     assert rec["equal_to_unsharded"]["unequal_leaves"] == [] and rec["equal_to_unsharded"]["loss"]
     assert rec["compression"]["mismatches"] == [] and rec["compression"]["leaves"] == 14
     assert [r["step"] for r in rec["steps"]] == [1, 2, 3] and rec["backend"] == "gloo"
