@@ -93,7 +93,10 @@ Phases, one JSON line each:
               d_model 2048, vocab 151936) and 4 of its 48 layers, f32
               AdamW, without the compression check: step 1's loss, aux
               loss, grad norm and every leaf bit-exact, both steps timed
-              alike, peak memory; (b) the
+              alike, peak memory; and so for the other mixers
+              (`DIST_MIXERS`): mamba2-780m (the SSD) and whisper-small
+              (encoder, `attn_cross`) at full size, llama-3.2-vision-11b
+              (the `cross` mixer) at full width and 5 layers; (b) the
               dry-run sweep, all 40 cells of the 16 x 16 mesh
               (`python -m repro_torch.launch.dryrun --all`) in a child
               interpreter on the host, beside (a): its host seconds, the
@@ -270,6 +273,15 @@ DIST_ARCH, DIST_MOMENTS, DIST_STEPS = "qwen3-4b", "bfloat16", 8
 #: width (128 experts, top 8) and batch 4 x seq 512: 4 of 48 layers, 3.1 x
 #: 10^9 f32 params (~50 GB with grads and f32 moments).
 DIST_MOE = ("qwen3-moe-30b-a3b", 4, "float32")
+#: The dist phase's runs of the other mixers, each (arch, layers or None for
+#: the full depth, AdamW moment dtype, seq) at batch TRAIN_BATCH: mamba2-780m
+#: (48 SSD layers) and whisper-small (12 + 12 layers, its encoder over 1500
+#: frames, the decoder at its 448 target positions) at full size,
+#: llama-3.2-vision-11b at full width and one pattern rep (5 layers: 4
+#: self-attention, 1 cross over 1601 image tokens; 2.1 x 10^9 f32 params,
+#: ~34 GB with grads and f32 moments).
+DIST_MIXERS = (("mamba2-780m", None, "float32", 512), ("whisper-small", None, "float32", 448),
+               ("llama-3.2-vision-11b", 5, "float32", 512))
 #: The dry-run sweep's time limit (host seconds, a child interpreter).
 DRYRUN_TIMEOUT_S = 300
 KERNEL_INFO = {
@@ -1901,6 +1913,10 @@ def main() -> int:
         arch, layers, moments = DIST_MOE
         moe_run = drive_dist_step(device, arch, moments, layers=layers, compression=False)
         emit({"phase": "dist", "part": "sharded_moe_step", **moe_run})
+        mixer_runs = []
+        for arch, layers, moments, seq in DIST_MIXERS:
+            mixer_runs.append(drive_dist_step(device, arch, moments, seq=seq, layers=layers, compression=False))
+            emit({"phase": "dist", "part": "sharded_mixer_step", **mixer_runs[-1]})
     with tempfile.TemporaryDirectory() as report_dir:
         dryrun_sweep = run_dryrun_sweep(report_dir)
     emit({"phase": "dist", "part": "dryrun_sweep", **dryrun_sweep})
@@ -1919,7 +1935,7 @@ def main() -> int:
                                  "pimsys CtMulRelinOp run": pim["card"]["launches"][kname],
                                  "lm serve": sum(r["launches"][kname] for r in lm_serves),
                                  "train": sum(r["launches"][kname] for r in train_runs),
-                                 "dist": dist_run["launches"][kname] + moe_run["launches"][kname]},
+                                 "dist": sum(r["launches"][kname] for r in (dist_run, moe_run, *mixer_runs))},
             "bit_exact": checked["max_abs_err"][kname] == 0,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -1932,7 +1948,7 @@ def main() -> int:
         "launches": fastpath["launches"]["chain_fold"], "max_abs_err": fold_check["max_abs_err"],
         "launches_by_path": {"fastpath evaluate_gang grid": fastpath["launches"]["chain_fold"],
                              "train": sum(r["launches"]["chain_fold"] for r in train_runs),
-                             "dist": dist_run["launches"]["chain_fold"] + moe_run["launches"]["chain_fold"]},
+                             "dist": sum(r["launches"]["chain_fold"] for r in (dist_run, moe_run, *mixer_runs))},
         "bit_exact": fold_check["max_abs_err"] == 0,
         "ms": block["ms"], "plain_ms": block["plain_ms"], "bound_ms": block["bound_ms"],
         "bound_by": block["bound_by"], "library_ms": block["library_ms"],

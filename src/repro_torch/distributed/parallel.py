@@ -14,7 +14,8 @@ slice, shard_map style, calling the collectives below where the reference's
     input's grad computed whole on one rank, so that they round as one
     device's matmuls do (weights exchanged between row and column blocks
     by an all-to-all where a product needs the other split); a whole-head
-    view of a split projection by `gather_model_sum`;
+    view of a split projection by `gather_model_sum`; the SSD's heads split
+    out of replicated activations (`split_to_model`);
   * EP: the MoE buffer's capacity slots reduce-scattered over dp
     (`reduce_scatter_dp`), the experts' outputs gathered back
     (`gather_dp`), each token's contributions summed over `model`;
@@ -29,7 +30,14 @@ enters rank-specific compute goes through `copy_to_model` (identity, its
 backward an all-reduce), a rank-specific partial that becomes replicated
 through `reduce_from_model` (an all-reduce, its backward the identity), and
 `gather_model` (the backward takes this rank's chunk) precedes replicated
-compute only.
+compute only.  `split_to_model` is its mirror: this rank's chunk of a
+replicated tensor for rank-specific compute, the backward an all-gather
+of the ranks' grads of their chunks (each computed whole on its rank), so
+the grad comes back whole and replicated, as one device computes it; and
+`row_parallel(..., whole=True)` takes the replicated rows whole and gives
+their grad back whole (an all-gather) in the same way.  Between a
+`gather_model` and a `split_to_model` the compute is replicated, and
+nothing is summed over `model` in the backward.
 
 Every collective is a functional collective (`_c10d_functional` ops), so
 the dry-run's `CollectiveTally` and `CommDebugMode` count them.  Axes of
@@ -188,6 +196,21 @@ class _GatherSlice(torch.autograd.Function):
         return torch.chunk(g, ctx.parts, ctx.dim)[ctx.index].contiguous(), None, None, None, None
 
 
+class _SplitGather(torch.autograd.Function):
+    """This rank's chunk along `dim`; backward: all-gather of the ranks'
+    grads (each rank's chunk's grad is whole there)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, parts, index):
+        ctx.dim, ctx.group = dim, group
+        n = x.shape[dim] // parts
+        return x.narrow(dim, index * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ag(g, ctx.dim, ctx.group), None, None, None, None
+
+
 class _ScatterSum(torch.autograd.Function):
     """Reduce-scatter (sum) along `dim`; backward: all-gather."""
 
@@ -296,18 +319,26 @@ class _RowParallel(torch.autograd.Function):
     summed over `model` would round some elements of the output otherwise
     than one device's matmul does.)  The backward is one device's bf16
     matmul backward on this rank's row block (the output's grad is
-    replicated)."""
+    replicated).  With `index`, `h` is whole (replicated) and this rank's
+    columns are chunk `index`: no gather in the forward, and the grad of
+    `h` comes back whole (its chunks all-gathered)."""
 
     @staticmethod
-    def forward(ctx, h, w, group, parts):
+    def forward(ctx, h, w, group, parts, index):
+        full = h if index is not None else _ag(h, -1, group)
+        if index is not None:
+            n = h.shape[-1] // parts
+            h = h.narrow(-1, index * n, n)
         ctx.save_for_backward(h, w)
-        return _ag(_ag(h, -1, group) @ _exchange(w, parts, group, rows=False), -1, group)
+        ctx.group, ctx.whole = group, index is not None
+        return _ag(full @ _exchange(w, parts, group, rows=False), -1, group)
 
     @staticmethod
     def backward(ctx, g):
         h, w = ctx.saved_tensors
         g2 = g.reshape(-1, g.shape[-1])
-        return (g2 @ w.T).reshape(h.shape), h.reshape(-1, h.shape[-1]).T @ g2, None, None
+        gh = (g2 @ w.T).reshape(h.shape)
+        return (_ag(gh, -1, ctx.group) if ctx.whole else gh), h.reshape(-1, h.shape[-1]).T @ g2, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -315,36 +346,31 @@ class _RowParallel(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def gather(t: torch.Tensor, place, keep_model: bool, offset: int = 0) -> torch.Tensor:
+def gather(t: torch.Tensor, place, offset: int = 0) -> torch.Tensor:
     """The local shard `t` of a param placed by `place`, gathered over the dp
-    axes (minor first) and, unless `keep_model`, over `model`.  `offset`
-    is the count of leading dims the caller sliced off (a rep slice of a
-    stacked leaf: 1).  The grad comes back reduce-scattered over dp (each
-    rank's own batch term, summed) and, over `model`, as this rank's
-    chunk."""
+    axes (minor first); a split over `model` stays (the layers compute on
+    it).  `offset` is the count of leading dims the caller sliced off (a
+    rep slice of a stacked leaf: 1).  The grad comes back reduce-scattered
+    over dp (each rank's own batch term, summed)."""
     plan = current()
     for i in reversed(plan.dp_dims):
         if place[i].is_shard():
             t = _GatherSum.apply(t, place[i].dim - offset, plan.group(i))
-    i = plan.model_dim
-    if i is not None and not keep_model and place[i].is_shard():
-        t = gather_model(t, place[i].dim - offset)
     return t
 
 
-def gather_tree(tree: dict, places: dict | None, keep: tuple = (), offset: int = 1) -> dict:
-    """`gather` over a block's params (a rep's slices: `offset` 1): the
-    subtrees named in `keep` keep their model shards.  `places` None (no
-    plan) gives `tree` back."""
+def gather_tree(tree: dict, places: dict | None, offset: int = 1) -> dict:
+    """`gather` over a block's params (a rep's slices: `offset` 1).  `places`
+    None (no plan) gives `tree` back."""
     if places is None:
         return tree
 
-    def walk(node, place, keep_model):
+    def walk(node, place):
         if isinstance(node, dict):
-            return {k: walk(v, place[k], keep_model) for k, v in node.items()}
-        return gather(node, place, keep_model, offset)
+            return {k: walk(v, place[k]) for k, v in node.items()}
+        return gather(node, place, offset)
 
-    return {k: walk(v, places[k], k in keep) for k, v in tree.items()}
+    return {k: walk(v, places[k]) for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -368,10 +394,12 @@ def column_parallel(x: torch.Tensor, *ws: torch.Tensor) -> tuple:
     return _ColumnParallel.apply(x, plan.group(plan.model_dim), plan.model_size, *ws)
 
 
-def row_parallel(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """`h @ w` (bf16, replicated over `model`), `w`'s rows split over it."""
+def row_parallel(h: torch.Tensor, w: torch.Tensor, whole: bool = False) -> torch.Tensor:
+    """`h @ w` (bf16, replicated over `model`), `w`'s rows split over it;
+    `h` this rank's columns, or with `whole` all of them, replicated."""
     plan = current()
-    return _RowParallel.apply(h, w, plan.group(plan.model_dim), plan.model_size)
+    return _RowParallel.apply(h, w, plan.group(plan.model_dim), plan.model_size,
+                              plan.model_rank if whole else None)
 
 
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
@@ -393,6 +421,15 @@ def gather_model_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     compute: the backward sums the ranks' grads."""
     plan = current()
     return x if plan.model_dim is None else _GatherSum.apply(x, dim % x.dim(), plan.group(plan.model_dim))
+
+
+def split_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's chunk along `dim` of `x`, replicated over `model`, for
+    rank-specific compute: the backward all-gathers the ranks' grads."""
+    plan = current()
+    if plan.model_dim is None:
+        return x
+    return _SplitGather.apply(x, dim % x.dim(), plan.group(plan.model_dim), plan.model_size, plan.model_rank)
 
 
 def vocab_to_model(table: torch.Tensor) -> torch.Tensor:

@@ -57,9 +57,10 @@ from repro_torch.configs.registry import ARCH_NAMES, cell_status, effective_shap
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
+from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 from repro_torch.optim import OptConfig
-from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
+from repro_torch.tree import keystr, leaves, leaves_with_path, tree_map, unflatten
 
 REPORT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "reports", "dryrun_torch")
 
@@ -269,35 +270,41 @@ def _whole_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in leaves(tree))
 
 
-def _gathered_bytes(tree, shardings, mesh, keep_model: bool) -> int:
+def _gathered_bytes(tree, shardings, mesh, kept=lambda path: True, prefix: str = "") -> int:
     """Bytes of `tree`'s leaves as the sharded train step gathers them: over
-    the dp axes, and over `model` too unless `keep_model`."""
-    drop = set(shd.dp_axes(mesh)) | (set() if keep_model else {"model"})
+    the dp axes, and over `model` too where `kept(path)` is false (`path`
+    the leaf's key string, after `prefix`)."""
+    dp = set(shd.dp_axes(mesh))
+    total = 0
+    for (path, t), (_, s) in zip(leaves_with_path(tree), leaves_with_path(shardings)):
+        drop = dp if kept(prefix + keystr(path)) else dp | {"model"}
+        spec = shd.P(*(tuple(a for a in shd._axes(e) if a not in drop) or None for e in s.spec))
+        total += math.prod(shd.local_shape(mesh, spec, t.shape)) * t.element_size()
+    return total
 
-    def kept(entry):
-        axes = tuple(a for a in shd._axes(entry) if a not in drop)
-        return axes or None
 
-    return sum(math.prod(shd.local_shape(mesh, shd.P(*map(kept, s.spec)), t.shape)) * t.element_size()
-               for t, s in _pairs(tree, shardings))
+def _kept_over_model(path: str) -> bool:
+    """Whether the sharded step computes on a param's model shard: all but
+    the SSD's `ssm.MODEL_GATHERED` leaves."""
+    return shd._leaf_name(path) not in ssm.MODEL_GATHERED
 
 
-def _train_gather_bytes(cfg, params, shardings, mesh) -> int:
+def _train_gather_bytes(cfg, params, shardings, mesh, kept=_kept_over_model) -> int:
     """The sharded train step's gathered copies of the params at their peak:
-    one rep's block leaves gathered over dp (the attention, MLP and MoE
-    leaves keep their model shards; every rep's with `cfg.remat` off, whose
-    backward keeps them), the encoder's layers gathered whole, the embedding
-    gathered over dp, and the head (the tied one: the embedding redistributed
-    so that the vocab is over model)."""
+    one rep's block leaves gathered over dp, with their model shards kept
+    where `kept(path)` (every rep's with `cfg.remat` off, whose backward
+    keeps them), the encoder's layers likewise, the embedding gathered over
+    dp, and the head (the tied one: the embedding redistributed so that the
+    vocab is over model)."""
     rep = 0
-    for (mixer, _), block, sh in zip(cfg.pattern(), params["blocks"], shardings["blocks"]):
-        keep = T._MODEL_LOCAL.get(mixer, ("ffn",))
-        rep += sum(_gathered_bytes(block[k], sh[k], mesh, k in keep) for k in block) // cfg.reps
+    for i, (block, sh) in enumerate(zip(params["blocks"], shardings["blocks"])):
+        rep += _gathered_bytes(block, sh, mesh, kept, f"['blocks'][{i}]") // cfg.reps
     total = rep if cfg.remat else rep * cfg.reps
     if "encoder" in params:
-        total += _gathered_bytes(params["encoder"]["blocks"], shardings["encoder"]["blocks"], mesh, False)
-    embed = _gathered_bytes(params["embed"], shardings["embed"], mesh, True)
-    head = _gathered_bytes(params["lm_head"], shardings["lm_head"], mesh, True) if "lm_head" in params else embed
+        total += _gathered_bytes(params["encoder"]["blocks"], shardings["encoder"]["blocks"], mesh, kept,
+                                 "['encoder']['blocks']")
+    embed = _gathered_bytes(params["embed"], shardings["embed"], mesh)
+    head = _gathered_bytes(params["lm_head"], shardings["lm_head"], mesh) if "lm_head" in params else embed
     return total + embed + head
 
 

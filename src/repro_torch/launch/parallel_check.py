@@ -41,14 +41,19 @@ from repro_torch.tree import leaves
 
 #: (name, arch, optimizer, overrides of the full config or None for the
 #: reduced one, batch per dp rank, seq, compare every leaf): the reduced
-#: dense and MoE cases of the CPU tests, and qwen3-moe-30b-a3b at full
-#: width and 2 layers (its metrics compared, not its 1.55 x 10^9-param
-#: leaves, whose host copies would take ~37 GB a rank).
+#: dense, MoE, SSD, hybrid, encoder-decoder and cross-attention cases of
+#: the CPU tests, and qwen3-moe-30b-a3b at full width and 2 layers (its
+#: metrics compared, not its 1.55 x 10^9-param leaves, whose host copies
+#: would take ~37 GB a rank).
 CASES = (
     ("qwen3-8b reduced", "qwen3-8b", "adamw", None, 4, 32, True),
     ("qwen3-8b reduced", "qwen3-8b", "adafactor", None, 4, 32, True),
     ("qwen3-moe reduced", "qwen3-moe-30b-a3b", "adamw", None, 4, 32, True),
     ("qwen3-moe reduced", "qwen3-moe-30b-a3b", "adafactor", None, 4, 32, True),
+    ("mamba2 reduced", "mamba2-780m", "adamw", None, 4, 32, True),
+    ("jamba reduced", "jamba-1.5-large-398b", "adamw", None, 4, 32, True),
+    ("whisper reduced", "whisper-small", "adamw", None, 4, 32, True),
+    ("llama-vision reduced", "llama-3.2-vision-11b", "adamw", None, 4, 32, True),
     ("qwen3-moe full width, 2 layers", "qwen3-moe-30b-a3b", "adamw", {"num_layers": 2}, 4, 512, False),
 )
 

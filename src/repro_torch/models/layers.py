@@ -8,11 +8,12 @@ compute the same function.  All functions are batch-agnostic over leading
 dims of `x` (B, S, D).
 
 Inside the sharded train step (`distributed.parallel.sharded`) the
-functions take local shards and compute their own slice: attention and the
-dense MLP tensor-parallel where `model` splits their heads and hidden dim,
-MoE expert-parallel over `model` with the routing of the global batch
-(capacity, sort order and aux loss over every dp rank's tokens).  Without
-a plan, or where nothing is split, they run the single-device code.
+functions take local shards and compute their own slice: attention (self
+and cross) and the dense MLP tensor-parallel where `model` splits their
+heads and hidden dim, MoE expert-parallel over `model` with the routing of
+the global batch (capacity, sort order and aux loss over every dp rank's
+tokens).  Without a plan, or where nothing is split, they run the
+single-device code.
 """
 from __future__ import annotations
 
@@ -165,47 +166,57 @@ def _heads(y, split: bool, n: int, hd: int, lo: int, hi: int):
     return y.reshape(*y.shape[:-1], n, hd)[..., lo:hi, :]
 
 
-def _attention_tp(p, cfg: ModelConfig, x, positions, causal: bool):
-    """Self-attention with `wq`'s columns (and `wo`'s rows) split over
-    `model`: this rank's column range of the heads, whole heads for rope and
-    qk-norm (q gathered where the split cuts a head), k / v gathered whole
-    and each rank taking the kv heads its q heads use; `wo` row-parallel."""
+def _attention_tp(p, cfg: ModelConfig, x, positions, causal: bool, kv=None):
+    """Self (kv None) or cross attention with `wq`'s columns (and `wo`'s
+    rows) split over `model`: this rank's column range of the heads, whole
+    heads for rope and qk-norm (q gathered where the split cuts a head), k
+    / v gathered whole and each rank taking the kv heads its q heads use;
+    `wo` row-parallel.  Cross-attention's k / v come from `kv`, replicated
+    over `model` like `x`, through its own column-parallel projections; no
+    rope, no causal mask."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     rep = h // kvh
     width = h * hd // P.current().model_size
     c0 = P.current().model_rank * width
     lo, hi = c0 // hd, -(-(c0 + width) // hd)  # the q heads this rank's columns touch
     kv_split = P.model_split(p["wk"].shape[-1], kvh * hd)
-    names = ("wq", "wk", "wv") if kv_split else ("wq",)
-    # role tokens_act: x replicated over model, into the column-parallel projections
-    proj = P.column_parallel(x, *(p[w].to(COMPUTE_DTYPE) for w in names))
-    q = proj[0]
+    xkv = x if kv is None else kv
+    # role tokens_act: x (and kv) replicated over model, into the column-parallel projections
+    if kv is None:
+        proj = P.column_parallel(x, *(p[w].to(COMPUTE_DTYPE) for w in (("wq", "wk", "wv") if kv_split else ("wq",))))
+        q, kv_proj = proj[0], proj[1:]
+    else:
+        q = P.column_parallel(x, p["wq"].to(COMPUTE_DTYPE))[0]
+        # one projection a call: `kv` takes each one's grad as on one device, where it sums the
+        # grads of every cross layer's wk and wv in the order they arrive
+        kv_proj = tuple(P.column_parallel(kv, p[w].to(COMPUTE_DTYPE))[0] for w in ("wk", "wv")) if kv_split else ()
     if c0 % hd or width % hd:
         q = _heads(q, True, h, hd, lo, hi)
     else:
         q = q.reshape(*x.shape[:-1], hi - lo, hd)
     klo, khi = lo // rep, (hi - 1) // rep + 1
     if kv_split:
-        k, v = (_heads(y, True, kvh, hd, klo, khi) for y in proj[1:])
+        k, v = (_heads(y, True, kvh, hd, klo, khi) for y in kv_proj)
     else:
-        k, v = (_heads(x @ p[w].to(COMPUTE_DTYPE), False, kvh, hd, klo, khi) for w in ("wk", "wv"))
+        k, v = (_heads(xkv @ p[w].to(COMPUTE_DTYPE), False, kvh, hd, klo, khi) for w in ("wk", "wv"))
     if cfg.qk_norm:
         q = rmsnorm(q, P.copy_to_model(p["q_norm"]), cfg.norm_eps)
         k = rmsnorm(k, P.copy_to_model(p["k_norm"]), cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if kv is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     if lo % rep or (hi - lo) % rep:  # q heads not in whole kv groups: one kv head per q head
         idx = torch.arange(lo, hi, device=x.device) // rep - klo
         k, v = k[..., idx, :], v[..., idx, :]
-    out = _sdpa(q, k, v, cfg, causal=causal).reshape(*x.shape[:-1], (hi - lo) * hd)
+    out = _sdpa(q, k, v, cfg, causal=causal and kv is None).reshape(*x.shape[:-1], (hi - lo) * hd)
     out = out[..., c0 - lo * hd:c0 - lo * hd + width]
     return P.row_parallel(out, p["wo"].to(COMPUTE_DTYPE))
 
 
 def attention(p, cfg: ModelConfig, x, positions, causal=True, kv=None):
     """Self (kv=None) or cross attention.  Returns (B, S, D)."""
-    if kv is None and P.model_split(p["wq"].shape[-1], cfg.num_heads * cfg.hd):
-        return _attention_tp(p, cfg, x, positions, causal)
+    if P.model_split(p["wq"].shape[-1], cfg.num_heads * cfg.hd):
+        return _attention_tp(p, cfg, x, positions, causal, kv)
     xkv = kv if kv is not None else x
     q, k, v = _project_qkv(p, cfg, x, xkv)
     if kv is None:  # self-attn: rotary on both
@@ -539,26 +550,39 @@ def _moe_sharded(p, cfg: ModelConfig, x, e0: int, el: int):
 
 def _moe_local_sharded(p, cfg: ModelConfig, x, e0: int, el: int, n_blocks: int | None):
     """`moe_local` on this dp rank's tokens: the blocks of the global batch
-    (`nb` from its batch), each rank holding its own whole blocks, so the
-    routing and dispatch need no dp traffic; the aux loss from global means;
-    experts [e0, e0 + el) here, each (token, k) entry summed over `model`."""
+    (`nb` from its batch, as the reference picks it); where the dp ranks
+    hold whole blocks, each rank its own, so the routing and dispatch need
+    no dp traffic; where a block straddles ranks (the dp size does not
+    divide `nb`), the tokens are all-gathered over dp and each rank runs
+    the blocks that hold its tokens, keeping its tokens' outputs.  The aux
+    loss from global means over each rank's own tokens; experts [e0, e0 +
+    el) here, each (token, k) entry summed over `model`."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     plan = P.current()
     dp = plan.dp_size
-    t = b * s * dp
+    mine = b * s
+    t = mine * dp
     nb = n_blocks or min(32, b * dp)
     while t % nb:
         nb //= 2
-    if nb % dp:
-        raise ValueError(f"moe_local: {nb} blocks do not split over {dp} dp ranks")
-    nbl, tl = nb // dp, t // nb
+    tl = t // nb
     cap = capacity(tl, cfg)
-    xt = x.reshape(nbl, tl, d)  # role moe_tokens_local: my blocks
+    straddle = nb % dp != 0
+    if not straddle:  # role moe_tokens_local: my blocks
+        nbl, first = nb // dp, 0
+        xt = x.reshape(nbl, tl, d)
+    else:  # the blocks that hold my tokens [start, start + mine), from every rank's tokens
+        start = plan.dp_rank * mine
+        j0, j1 = start // tl, -(-(start + mine) // tl)
+        nbl, first = j1 - j0, start - j0 * tl
+        xt = P.gather_dp(x.reshape(mine, d), 0)[j0 * tl:j1 * tl].reshape(nbl, tl, d)
     dev = x.device
 
     logits = torch.einsum("btd,de->bte", xt, p["router"].to(COMPUTE_DTYPE)).to(F32)
-    top_w, top_e, aux = _route(logits, e, k, dp=dp > 1)
+    top_w, top_e, aux = _route(logits, e, k, dp=dp > 1 and not straddle)
+    if straddle:  # the aux means over my own tokens
+        aux = _route(logits.reshape(nbl * tl, e)[first:first + mine], e, k, dp=True)[2]
 
     flat_e = top_e.reshape(nbl, tl * k)
     order = torch.argsort(flat_e, dim=-1, stable=True)
@@ -591,4 +615,4 @@ def _moe_local_sharded(p, cfg: ModelConfig, x, e0: int, el: int, n_blocks: int |
         gathered = P.reduce_from_model(gathered)  # each (token, k) entry has one nonzero owner
     w_tm = top_w.reshape(nbl, tl * k).to(COMPUTE_DTYPE)
     out = _sum_k((gathered * w_tm[..., None]).reshape(nbl, tl, k, d))
-    return out.reshape(b, s, d), aux
+    return out.reshape(nbl * tl, d)[first:first + mine].reshape(b, s, d), aux

@@ -7,6 +7,11 @@ a loop that emits the state entering each chunk).
 
 Shapes: x (B, S, H, P) heads x head_dim, B/C (B, S, G, N) groups x state,
 dt (B, S, H), A (H,) negative decay rates.
+
+Inside the sharded train step (`distributed.parallel.sharded`) the mixer
+takes its model shards (the reference's rules: `in_proj` columns, `conv_w`
+channels, `a_log` / `skip_d` / `dt_bias` heads, `out_proj` rows) and each
+rank computes the SSD of its own heads (`mamba_forward`).
 """
 from __future__ import annotations
 
@@ -16,7 +21,12 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel as P
 from repro_torch.models.layers import COMPUTE_DTYPE, F32, _he, rmsnorm, rmsnorm_init, silu
+
+#: The mixer's leaves that the sharded step gathers whole over `model`
+#: (`mamba_forward`): the depthwise conv's taps, W x (d_inner + 2 G N).
+MODEL_GATHERED = ("conv_w",)
 
 # ---------------------------------------------------------------------------
 # three-operand contractions in the reference's order
@@ -85,6 +95,32 @@ def einsum3(sub: str, *ops: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class _Broadcast(torch.autograd.Function):
+    """`v` expanded to `shape`.  The backward sums the grad over the
+    broadcast dims with them made innermost and contiguous, so that each
+    element's sum runs over one contiguous row: the same whichever heads
+    the tensor holds (a rank of the sharded step holds H / model).  A
+    broadcast's own backward reduces over outer dims in an order that
+    depends on the size of the inner ones."""
+
+    @staticmethod
+    def forward(ctx, v, shape):
+        ctx.vshape = v.shape
+        return v.expand(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        vs = (1,) * (g.dim() - len(ctx.vshape)) + tuple(ctx.vshape)
+        red = [i for i in range(g.dim()) if vs[i] == 1 and g.shape[i] != 1]
+        keep = [i for i in range(g.dim()) if i not in red]
+        out = g.permute(keep + red).contiguous().reshape(*(g.shape[i] for i in keep), -1).sum(-1)
+        return out.reshape(ctx.vshape), None
+
+
+def _bcast(v, like):
+    return _Broadcast.apply(v, like.shape)
+
+
 def _segsum_decay(a_cs):
     """L[i, j] = exp(a_cs[i] - a_cs[j]) for i >= j else 0.  a_cs: (..., L).
 
@@ -137,7 +173,7 @@ def ssd_chunked_grouped(xb, dA, Bg, Cg, chunk: int, init_state=None):
     L = _segsum_decay(a_sw).to(COMPUTE_DTYPE)  # (b,c,g,hh,l,s)
     y_diag = einsum3("bcgls,bcghls,bcsghp->bclghp", scores, L, xc)
 
-    decay_to_end = torch.exp(a_total[:, :, None] - a_cs).to(COMPUTE_DTYPE)  # (b,c,l,g,hh)
+    decay_to_end = torch.exp(_bcast(a_total[:, :, None], a_cs) - a_cs).to(COMPUTE_DTYPE)  # (b,c,l,g,hh)
     chunk_states = einsum3("bclgn,bclgh,bclghp->bcghpn", Bc, decay_to_end, xc)
 
     if init_state is None:
@@ -176,7 +212,7 @@ def ssd_chunked(xb, dA, Bh, Ch, chunk: int, init_state=None):
     y_diag = einsum3("bchls,bchls,bcshp->bclhp", scores, Ldt, xc)
 
     # per-chunk end states
-    decay_to_end = torch.exp(a_total[:, :, None, :] - a_cs).to(COMPUTE_DTYPE)  # (b,c,l,h)
+    decay_to_end = torch.exp(_bcast(a_total[:, :, None, :], a_cs) - a_cs).to(COMPUTE_DTYPE)  # (b,c,l,h)
     chunk_states = einsum3("bclhn,bclh,bclhp->bchpn", Bc, decay_to_end, xc)
 
     # inter-chunk recurrence
@@ -272,44 +308,82 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def mamba_forward(p, cfg: ModelConfig, x, init_state=None, conv_history=None):
-    """Full-sequence mixer.  x: (B, S, D) bf16.  Returns (y, (conv_hist, state)).
+def _ssd_heads(p, cfg: ModelConfig, z, xi, B, C, dt, init_state=None):
+    """The SSD of the heads that `z`, `xi` (B, S, heads, P), `dt` (B, S,
+    heads) and `p`'s `a_log` / `skip_d` / `dt_bias` hold, with `B` / `C` at
+    group rank (B, S, groups, N) for `ssm_impl="grouped"`, else per head
+    (B, S, heads, N): the gated rows y * silu(z), (B, S, heads x P), and
+    the final state.
 
     Sequences are padded (at the end) to a chunk multiple; padded steps
     have dt forced to 0, so they neither decay nor feed the state: the
-    returned state is exactly the post-last-real-token state.
-    """
-    b, s, d = x.shape
-    h_heads, hp = cfg.ssm_heads, cfg.ssm_head_dim
-    proj = x @ p["in_proj"].to(COMPUTE_DTYPE)
-    z, xbc, dt = _split_proj(cfg, proj)
-    xbc, conv_hist = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_history)
-    xbc = silu(xbc)
-    xi, B, C = _split_xbc(cfg, xbc)
-    dt = _softplus(dt.to(F32) + p["dt_bias"])  # (B,S,H)
+    returned state is exactly the post-last-real-token state."""
+    b, s, h, hp = xi.shape
+    dt = _softplus(dt.to(F32) + _bcast(p["dt_bias"], dt))  # (B,S,H)
     pad = (-s) % cfg.ssm_chunk
     if pad:  # dt = 0 -> identity step
-        dt, xi, B, C = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (dt, xi, B, C))
-    sp = s + pad
-    A = -torch.exp(p["a_log"])  # (H,)
-    dA = dt * A  # (B,Sp,H)
-    xh = xi.reshape(b, sp, h_heads, hp)
-    xb = xh * dt[..., None].to(COMPUTE_DTYPE)
+        dt, xi, B, C = (torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (dt, xi, B, C))
+    dA = dt * _bcast(-torch.exp(p["a_log"]), dt)  # (B,Sp,H)
+    xb = xi * dt[..., None].to(COMPUTE_DTYPE)
     if cfg.ssm_impl == "grouped":
-        g, n = cfg.ssm_groups, cfg.ssm_state
-        y, state = ssd_chunked_grouped(
-            xb, dA, B.reshape(b, sp, g, n), C.reshape(b, sp, g, n), cfg.ssm_chunk, init_state,
-        )
+        y, state = ssd_chunked_grouped(xb, dA, B, C, cfg.ssm_chunk, init_state)
     else:
-        Bh = _expand_groups(cfg, B)
-        Ch = _expand_groups(cfg, C)
-        y, state = ssd_chunked(xb, dA, Bh, Ch, cfg.ssm_chunk, init_state)
+        y, state = ssd_chunked(xb, dA, B, C, cfg.ssm_chunk, init_state)
     y = y[:, :s]
-    xh = xh[:, :s]
+    xh = xi[:, :s]
     y = y + xh * p["skip_d"][None, None, :, None].to(COMPUTE_DTYPE)
-    y = y.reshape(b, s, cfg.d_inner)
-    y = rmsnorm(y * silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"].to(COMPUTE_DTYPE), (conv_hist, state)
+    return y.reshape(b, s, h * hp) * silu(z.reshape(b, s, h * hp)), state
+
+
+def mamba_forward(p, cfg: ModelConfig, x, init_state=None, conv_history=None):
+    """Full-sequence mixer.  x: (B, S, D) bf16.  Returns (y, (conv_hist, state)).
+
+    In the sharded train step, on the mixer's model shards: `in_proj`'s
+    columns [z | x | B | C | dt] split over `model` do not line up with the
+    heads, so each rank computes its column block (each column whole there)
+    and the block is all-gathered; the conv (its `conv_w` gathered whole:
+    `MODEL_GATHERED`), silu and the groups' expansion to heads run
+    replicated; each rank takes its own heads (`split_to_model`, where
+    `a_log` splits: H / model heads) and runs the SSD on them; the gated
+    rows are all-gathered, normed whole (the RMS statistic is over all of
+    `d_inner`) and go whole into the row-parallel `out_proj`.  No grad is
+    summed over `model`: each head's grad is computed on its rank and
+    all-gathered, and the replicated part's backward runs on whole grads,
+    as on one device.  The grouped form needs whole groups a rank.  The
+    state returned there is the rank's heads'."""
+    b, s, _ = x.shape
+    h, hp, g, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
+    di = cfg.d_inner
+    w = p["in_proj"].to(COMPUTE_DTYPE)
+    if P.model_split(w.shape[-1], 2 * di + 2 * g * n + h):  # role tokens_act: x replicated over model
+        proj = P.gather_model(P.column_parallel(x, w)[0], -1)
+    else:
+        proj = x @ w
+    conv_w = p["conv_w"]
+    if P.model_split(conv_w.shape[-1], di + 2 * g * n):
+        conv_w = P.gather_model(conv_w, -1)
+    z, xbc, dt = _split_proj(cfg, proj)
+    xbc, conv_hist = _causal_conv(xbc, conv_w, p["conv_b"], conv_history)
+    xi, B, C = _split_xbc(cfg, silu(xbc))
+    heads = P.model_split(p["a_log"].shape[-1], h)
+    if cfg.ssm_impl == "grouped":
+        B, C = B.reshape(b, s, g, n), C.reshape(b, s, g, n)
+        if heads and g % P.current().model_size:
+            raise ValueError(f"ssm_impl='grouped' splits whole groups over model: {g} groups over "
+                             f"{P.current().model_size} ranks; use the baseline form")
+    else:
+        B, C = _expand_groups(cfg, B), _expand_groups(cfg, C)
+    z, xi = z.reshape(b, s, h, hp), xi.reshape(b, s, h, hp)
+    if heads:  # this rank's heads (and groups)
+        z, xi, B, C, dt = (P.split_to_model(t, 2) for t in (z, xi, B, C, dt))
+    y, state = _ssd_heads(p, cfg, z, xi, B, C, dt, init_state)
+    if heads:
+        y = P.gather_model(y, -1)
+    y = rmsnorm(y, p["norm"], cfg.norm_eps)
+    w = p["out_proj"].to(COMPUTE_DTYPE)
+    if P.model_split(w.shape[0], di):
+        return P.row_parallel(y, w, whole=True), (conv_hist, state)
+    return y @ w, (conv_hist, state)
 
 
 def mamba_decode(p, cfg: ModelConfig, x, conv_history, state):

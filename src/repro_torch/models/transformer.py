@@ -28,11 +28,12 @@ while grads are being recorded.
 
 Inside the sharded train step (`distributed.parallel.sharded`) `forward`
 and `loss_fn` take each rank's local shards: each rep gathers its block
-leaves over the dp axes as it starts (inside the remat `checkpoint`), the
-attention, MLP and MoE leaves keep their model shards (the layers split
-the work), the other mixers' leaves and the encoder's are gathered over
-`model` too and computed whole; the embedding is gathered at use, the
-head keeps the vocab split over `model` and the loss reduces over it.
+leaves over the dp axes as it starts (inside the remat `checkpoint`), and
+every leaf keeps its model shard: attention (self and cross), the MLP,
+MoE and the SSD mixer split the work, in the decoder and the whisper
+encoder alike (the SSD gathers its small `conv_w` whole, `ssm.
+MODEL_GATHERED`); the embedding is gathered at use, the head keeps the
+vocab split over `model` and the loss reduces over it.
 """
 from __future__ import annotations
 
@@ -132,11 +133,6 @@ def _apply_block(cfg, mixer, ffn, p, x, positions, enc_out):
     return x, aux
 
 
-#: The block subtrees whose model shards the layers compute on in place
-#: (the rest is gathered over `model` too), by mixer.
-_MODEL_LOCAL = {"attn": ("mixer", "ffn"), "attn_nc": ("mixer", "ffn"), "attn_cross": ("mixer", "ffn")}
-
-
 def _rep_slice(stack, r):
     """Rep `r`'s parameter (or cache) slice of a stacked dict: views."""
     return {k: _rep_slice(v, r) if isinstance(v, dict) else v[r] for k, v in stack.items()}
@@ -158,7 +154,7 @@ def _apply_rep(cfg, plan, p_slices, positions, enc_out, x, aux):
         for i, (mixer, ffn) in enumerate(cfg.pattern()):
             p = p_slices[i]
             if plan is not None:  # the scan body's site (role tokens_act): this rep's leaves gathered over dp
-                p = P.gather_tree(p, plan.placements["blocks"][i], _MODEL_LOCAL.get(mixer, ("ffn",)))
+                p = P.gather_tree(p, plan.placements["blocks"][i])
             x, a = _apply_block(cfg, mixer, ffn, p, x, positions, enc_out)
             aux = aux + a
     return x, aux
@@ -179,7 +175,7 @@ def _embed(params, tokens, plan):
     if plan is None:
         return params["embed"][tokens].to(COMPUTE_DTYPE)
     place = plan.placements["embed"]
-    x = P.gather(params["embed"], place, keep_model=True)[tokens].to(COMPUTE_DTYPE)
+    x = P.gather(params["embed"], place)[tokens].to(COMPUTE_DTYPE)
     if plan.model_dim is not None and place[plan.model_dim].is_shard():
         x = P.gather_model(x, -1)
     return x  # role tokens_act
@@ -189,9 +185,9 @@ def _sharded_head(params, plan):
     """This rank's head in the sharded step: (d, V / model) where the vocab
     splits over `model` (role logits), else (d, V)."""
     if "lm_head" in params:
-        return P.gather(params["lm_head"], plan.placements["lm_head"], keep_model=True)
+        return P.gather(params["lm_head"], plan.placements["lm_head"])
     place = plan.placements["embed"]  # tied: the table's vocab over dp, d over model
-    table = P.gather(params["embed"], place, keep_model=True)
+    table = P.gather(params["embed"], place)
     i = plan.model_dim
     if i is None or not place[i].is_shard():
         return table.T

@@ -205,3 +205,24 @@ def test_mini_fake_world_pass(tmp_path):
         if key.endswith("train"):
             assert mem["alias_bytes"] == mem["output_bytes"] and "reduce-scatter" in r["counts"], key
     assert out["kimi-k2-1t-a32b/train"]["opt"] == "adafactor"
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-1.5-large-398b", "whisper-small", "llama-3.2-vision-11b"])
+def test_train_gather_bytes_keep_the_mixers_model_shards(arch):
+    """The train_4k cell on the 16 x 16 mesh (meta tensors, no world): the
+    gathered copies now keep the model shards of the SSD, cross-attention
+    and the whisper encoder (only the SSD's `conv_w` is gathered whole), so
+    they are below what the same accounting gives with every block leaf
+    but the FFN's, and every encoder leaf, gathered over `model`; the
+    cell's temporaries are those copies."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg, shape, mesh = get_config(arch), SHAPES["train_4k"], make_production_mesh()
+    cell = dryrun.build_cell(cfg, shape, mesh)
+    params, shardings = cell.inputs["params"], cell.in_sh["params"]
+    now = dryrun._train_gather_bytes(cfg, params, shardings, mesh)
+    mixers_whole = dryrun._train_gather_bytes(cfg, params, shardings, mesh,
+                                              lambda path: "['ffn']" in path and "encoder" not in path)
+    assert now < mixers_whole, (now, mixers_whole)
+    assert dryrun.memory_bytes(cfg, shape, mesh)["temp_bytes"] == now

@@ -27,7 +27,7 @@ import contextlib
 import numpy as np
 
 
-def setup(arch, optimizer, data, model, tmp, **over):
+def setup(arch, optimizer, data, model, tmp, seq=32, **over):
     from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticStream
@@ -46,7 +46,7 @@ def setup(arch, optimizer, data, model, tmp, **over):
         p0 = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     s0 = S.make_opt_init(cfg, opt)(p0)
     host, hosts = S.data_parallel_rank(mesh)
-    stream = lambda h: SyntheticStream(cfg, 4, 32, host_id=h, num_hosts=hosts).batch_at(1)
+    stream = lambda h: SyntheticStream(cfg, 4, seq, host_id=h, num_hosts=hosts).batch_at(1)
     local = {k: torch.from_numpy(v) for k, v in stream(host).items()}
     parts = [stream(h) for h in range(hosts)]
     whole = {k: torch.from_numpy(np.concatenate([p[k] for p in parts])) for k in parts[0]}

@@ -332,9 +332,11 @@ with cs.one_rank_world("cpu"):
     rec = cs.drive_dist_step("cpu", batch=2, seq=32, steps=3, reduced=True)
     arch, layers, moments = cs.DIST_MOE
     moe = cs.drive_dist_step("cpu", arch, moments, batch=2, seq=32, steps=3, reduced=True, compression=False)
+    mixers = [cs.drive_dist_step("cpu", arch, moments, batch=2, seq=32, steps=2, reduced=True, layers=layers,
+                                 compression=False) for arch, layers, moments, _ in cs.DIST_MIXERS]
 with tempfile.TemporaryDirectory() as d:
     sweep = cs.run_dryrun_sweep(d, ("--arch", "qwen3-8b", "--shape", "long_500k"))
-print(json.dumps({"step": rec, "moe": moe, "sweep": sweep}))
+print(json.dumps({"step": rec, "moe": moe, "mixers": mixers, "sweep": sweep}))
 '''
 
 
@@ -342,10 +344,17 @@ def test_chip_smoke_dist_phase_on_cpu(tmp_path):
     """`chip_smoke.py`'s dist phase rehearsed at reduced qwen3-4b and reduced
     qwen3-moe in a one-rank gloo world (a child interpreter): the
     collectives equal the codec, the sharded step 1 equals the unsharded
-    one bit for bit (the MoE's aux loss too), no kernel of the port
+    one bit for bit (the MoE's aux loss too; and for the other mixers'
+    runs, reduced mamba2, whisper and llama-vision), no kernel of the port
     launches; the sweep's plumbing on a skipped cell."""
     out = json.loads(run_child(tmp_path, DIST_PHASE).strip().splitlines()[-1])
     rec, moe, sweep = out["step"], out["moe"], out["sweep"]
+    assert [r["arch"] for r in out["mixers"]] == ["mamba2-780m", "whisper-small", "llama-3.2-vision-11b"]
+    for r in out["mixers"]:
+        assert r["equal_to_unsharded"]["unequal_leaves"] == [], r
+        assert all(r["equal_to_unsharded"][k] for k in ("loss", "aux", "grad_norm", "lr")), r
+        assert r["launches"] == rec["launches"] and len(r["steps"]) == 2, r
+    assert out["mixers"][2]["layers"] == 5
     assert moe["equal_to_unsharded"]["unequal_leaves"] == [] and moe["compression"] is None
     assert all(moe["equal_to_unsharded"][k] for k in ("loss", "aux", "grad_norm", "lr")), moe
     assert moe["experts"] == 4 and moe["steps"][0]["aux"] > 0 and moe["launches"] == rec["launches"]
