@@ -97,12 +97,19 @@ Phases, one JSON line each:
               (`DIST_MIXERS`): mamba2-780m (the SSD) and whisper-small
               (encoder, `attn_cross`) at full size, llama-3.2-vision-11b
               (the `cross` mixer) at full width and 5 layers; (b) the
-              dry-run sweep, all 40 cells of the 16 x 16 mesh
-              (`python -m repro_torch.launch.dryrun --all`) in a child
-              interpreter on the host, beside (a): its host seconds, the
-              counts of run / skip / FAIL cells (a FAIL fails the phase) and
-              each cell's roofline row.  The path launches none of the
-              port's kernels.
+              lm phase's serves (qwen3-4b and mamba2-780m at full size,
+              batch 4, prompt 128, 32 tokens) through
+              `make_sharded_prefill_step` / `make_sharded_decode_step` on
+              `DTensor` params and caches: the greedy tokens, every step's
+              logits and every cache leaf equal bit for bit to the
+              unsharded steps' on the same weights, prefill and decode
+              ms per step of both timed alike; (c) the dry-run sweep, all
+              40 cells of the 16 x 16 mesh (`python -m
+              repro_torch.launch.dryrun --all`, the serving cells through
+              the sharded steps) in a child interpreter on the host, beside
+              (a) and (b): its host seconds, the counts of run / skip / FAIL
+              cells (a FAIL fails the phase) and each cell's roofline row.
+              The path launches none of the port's kernels.
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises (exit code != 0).
 Imports nothing of `jax` or `repro`.
@@ -282,6 +289,10 @@ DIST_MOE = ("qwen3-moe-30b-a3b", 4, "float32")
 #: ~34 GB with grads and f32 moments).
 DIST_MIXERS = (("mamba2-780m", None, "float32", 512), ("whisper-small", None, "float32", 448),
                ("llama-3.2-vision-11b", 5, "float32", 512))
+#: The dist phase's sharded serves: the lm phase's full-size serves
+#: (arch, batch, prompt_len, gen) through the sharded prefill and decode
+#: steps on a 1 x 1 mesh, against `generate`'s unsharded steps.
+DIST_SERVE = LM_SERVE
 #: The dry-run sweep's time limit (host seconds, a child interpreter).
 DRYRUN_TIMEOUT_S = 300
 KERNEL_INFO = {
@@ -1623,19 +1634,18 @@ def check_compression(grads, mesh, pods) -> dict:
     return out
 
 
-def timed_step(step_fn, params, opt_state, batch, step, device):
-    """One step: (params, opt_state, metrics, ms), timed with CUDA events
-    on the card, the host clock elsewhere."""
+def timed_call(fn, device):
+    """(fn's result, ms): CUDA events on the card, the host clock elsewhere."""
     on_card = torch.device(device).type == "cuda"
     if on_card:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
     t0 = time.perf_counter()
-    params, opt_state, m = step_fn(params, opt_state, batch, step)
+    out = fn()
     if on_card:
         ev[1].record()
     _sync(device)
-    return params, opt_state, m, ev[0].elapsed_time(ev[1]) if on_card else (time.perf_counter() - t0) * 1e3
+    return out, ev[0].elapsed_time(ev[1]) if on_card else (time.perf_counter() - t0) * 1e3
 
 
 def drive_dist_step(device, arch: str = DIST_ARCH, moments: str = DIST_MOMENTS, batch: int = TRAIN_BATCH,
@@ -1690,7 +1700,7 @@ def drive_dist_step(device, arch: str = DIST_ARCH, moments: str = DIST_MOMENTS, 
     unsharded_ms = []
     for step in range(1, steps + 1):
         b = b1 if step == 1 else to_device(stream.batch_at(step), device)
-        params, opt_state, m, ms = timed_step(step_fn, params, opt_state, b, step, device)
+        (params, opt_state, m), ms = timed_call(lambda: step_fn(params, opt_state, b, step), device)
         unsharded_ms.append(ms)
         if step == 1:
             ref = [t.to("cpu", copy=True) for t in leaves((params, opt_state))]  # steps 2.. update in place
@@ -1712,7 +1722,7 @@ def drive_dist_step(device, arch: str = DIST_ARCH, moments: str = DIST_MOMENTS, 
     rows = []
     for step in range(1, steps + 1):
         b = b1 if step == 1 else to_device(stream.batch_at(step), device)
-        params, opt_state, m, ms = timed_step(step_fn, params, opt_state, b, step, device)
+        (params, opt_state, m), ms = timed_call(lambda: step_fn(params, opt_state, b, step), device)
         rows.append({"step": step, "loss": float(m["loss"]), "aux": float(m["aux"]), "grad_norm": float(m["grad_norm"]),
                      "ms": ms})
         if step == 1:
@@ -1746,6 +1756,110 @@ def drive_dist_step(device, arch: str = DIST_ARCH, moments: str = DIST_MOMENTS, 
         raise AssertionError(f"dist: the sharded step differs from the unsharded one: {equal}, launches {launches}")
     if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows):
         raise AssertionError(f"dist: non-finite steps {rows}")
+    return out
+
+
+def serve_steps(prefill, decode, params, inputs, prompt_len: int, gen: int, device, local=lambda t: t) -> dict:
+    """`generate`'s loop over the steps `prefill` / `decode`: the prefill,
+    then `gen - 1` greedy decode steps, each call timed alike
+    (`timed_call`).  `local` takes a step's logits or cache leaf to a plain
+    tensor (a `DTensor`'s local shard).  Returns the tokens, every call's
+    logits, the caches (and as `next`, a call of one more decode step on
+    them) and the times."""
+    with torch.inference_mode():
+        (logits, caches), prefill_ms = timed_call(lambda: prefill(params, inputs), device)
+        out = [local(logits)]
+        tokens = [torch.argmax(out[-1], dim=-1).to(torch.int32)]
+        step_ms = []
+        for i in range(gen - 1):
+            (logits, caches), ms = timed_call(lambda: decode(params, tokens[-1], caches, prompt_len + i), device)
+            out.append(local(logits))
+            tokens.append(torch.argmax(out[-1], dim=-1).to(torch.int32))
+            step_ms.append(ms)
+
+    def next_step():
+        with torch.inference_mode():
+            decode(params, tokens[-1], caches, prompt_len + gen - 1)
+
+    return {"tokens": torch.stack(tokens, dim=1), "logits": out, "prefill_ms": prefill_ms, "step_ms": step_ms,
+            "caches": [{k: local(t) for k, t in c.items()} for c in caches], "next": next_step}
+
+
+def drive_dist_serve(device, arch: str, batch: int, prompt_len: int, gen: int, reduced: bool = False,
+                     seed: int = SEED) -> dict:
+    """Phase 11 (b), inside a one-rank world: `serve`'s weights and prompt
+    for `seed`, served greedily by the unsharded steps (`make_prefill_step`
+    / `make_decode_step`, as `generate` runs them) and by
+    `make_sharded_prefill_step` / `make_sharded_decode_step` on the same
+    weights as `DTensor`s on a 1 x 1 mesh, each fed its own greedy tokens,
+    in turns (unsharded, sharded, sharded, unsharded): every sharded run's
+    tokens, logits and cache leaves must equal the first unsharded run's
+    bit for bit (at world size 1 nothing is split and no collective runs).
+    Each prefill and decode step is timed alike; a version's decode ms is
+    the median over its two runs' steps.  The launch counts are reset
+    before and read after the sharded runs.  A short unsharded serve
+    first, untimed, pays the first calls' set-up; on the card one more
+    decode step of each runs under the profiler (device busy ms)."""
+    on_card = torch.device(device).type == "cuda"
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    inputs = to_device(make_inputs(cfg, batch, prompt_len, seed), device)
+    cache_len = prompt_len + gen
+    mesh = make_host_mesh(data=1, model=1, device=device)
+    versions = {
+        "unsharded": (steps_lib.make_prefill_step(cfg, cache_len), steps_lib.make_decode_step(cfg), params,
+                      lambda t: t),
+        "sharded": (steps_lib.make_sharded_prefill_step(cfg, cache_len, mesh),
+                    steps_lib.make_sharded_decode_step(cfg, mesh),
+                    shd.distribute_tree(params, shd.param_shardings(mesh, params)), lambda t: t.to_local()),
+    }
+
+    def run(name, n=gen):
+        prefill, decode, weights, local = versions[name]
+        return serve_steps(prefill, decode, weights, inputs, prompt_len, n, device, local)
+
+    run("unsharded", 2)  # untimed: the first calls' set-up
+    runs = {"unsharded": [run("unsharded")]}
+    kernels.reset_launch_counts()
+    runs["sharded"] = [run("sharded"), run("sharded")]
+    launches = port_launches()
+    runs["unsharded"].append(run("unsharded"))
+    plain = runs["unsharded"][0]
+    unequal_logits, unequal_caches, tokens = [], [], True
+    for split in runs["sharded"]:
+        tokens = tokens and bool(torch.equal(plain["tokens"], split["tokens"]))
+        unequal_logits += [i for i, (a, b) in enumerate(zip(plain["logits"], split["logits"])) if not torch.equal(a, b)]
+        unequal_caches += [f"{i}.{k}" for i, (a, b) in enumerate(zip(plain["caches"], split["caches"]))
+                           for k in a if not torch.equal(a[k], b[k])]
+    equal = {"tokens": tokens, "unequal_logits": unequal_logits, "unequal_cache_leaves": unequal_caches,
+             "cache_leaves": sum(len(c) for c in plain["caches"]), "logits": len(plain["logits"]),
+             "sharded_runs": len(runs["sharded"])}
+    out = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": sum(p.numel() for p in leaves(params)), "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "backend": torch.distributed.get_backend(), "batch": batch, "prompt_len": prompt_len, "gen": gen,
+           "order": ["unsharded", "sharded", "sharded", "unsharded"], "equal_to_unsharded": equal,
+           "launches": launches, "sample_tokens": runs["sharded"][0]["tokens"][0, :8].tolist(),
+           "cache_specs": sorted({f"{k}: {sh.spec}" for c in shd.cache_shardings(
+               mesh, T.init_cache(cfg, batch, cache_len, device="meta")) for k, sh in c.items()})}
+    for name, pair in runs.items():
+        ms = [m for r in pair for m in r["step_ms"]]
+        out[f"{name}_prefill_ms"] = [r["prefill_ms"] for r in pair]
+        out[f"{name}_decode_ms_per_step"] = float(np.median(ms))
+        out[f"{name}_decode_ms_by_run"] = [float(np.median(r["step_ms"])) for r in pair]
+        out[f"{name}_decode_ms_spread"] = [min(ms), max(ms)]
+        if on_card:
+            out[f"{name}_decode_profile"] = profile_by_class(pair[0]["next"])
+    out["sharded_over_unsharded_decode"] = out["sharded_decode_ms_per_step"] / out["unsharded_decode_ms_per_step"]
+    finite = all(bool(torch.isfinite(t.float()).all()) for r in runs["sharded"] for t in r["logits"])
+    del runs, plain, versions, params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    if not tokens or unequal_logits or unequal_caches or any(launches.values()) or not finite:
+        raise AssertionError(f"dist serve {arch}: the sharded steps differ from the unsharded ones: {equal}, "
+                             f"finite {finite}, launches {launches}")
     return out
 
 
@@ -1917,6 +2031,10 @@ def main() -> int:
         for arch, layers, moments, seq in DIST_MIXERS:
             mixer_runs.append(drive_dist_step(device, arch, moments, seq=seq, layers=layers, compression=False))
             emit({"phase": "dist", "part": "sharded_mixer_step", **mixer_runs[-1]})
+        serve_runs = []
+        for spec in DIST_SERVE:
+            serve_runs.append(drive_dist_serve(device, *spec))
+            emit({"phase": "dist", "part": "sharded_serve", **serve_runs[-1]})
     with tempfile.TemporaryDirectory() as report_dir:
         dryrun_sweep = run_dryrun_sweep(report_dir)
     emit({"phase": "dist", "part": "dryrun_sweep", **dryrun_sweep})
@@ -1935,7 +2053,8 @@ def main() -> int:
                                  "pimsys CtMulRelinOp run": pim["card"]["launches"][kname],
                                  "lm serve": sum(r["launches"][kname] for r in lm_serves),
                                  "train": sum(r["launches"][kname] for r in train_runs),
-                                 "dist": sum(r["launches"][kname] for r in (dist_run, moe_run, *mixer_runs))},
+                                 "dist": sum(r["launches"][kname]
+                                             for r in (dist_run, moe_run, *mixer_runs, *serve_runs))},
             "bit_exact": checked["max_abs_err"][kname] == 0,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -1948,7 +2067,8 @@ def main() -> int:
         "launches": fastpath["launches"]["chain_fold"], "max_abs_err": fold_check["max_abs_err"],
         "launches_by_path": {"fastpath evaluate_gang grid": fastpath["launches"]["chain_fold"],
                              "train": sum(r["launches"]["chain_fold"] for r in train_runs),
-                             "dist": sum(r["launches"]["chain_fold"] for r in (dist_run, moe_run, *mixer_runs))},
+                             "dist": sum(r["launches"]["chain_fold"]
+                                         for r in (dist_run, moe_run, *mixer_runs, *serve_runs))},
         "bit_exact": fold_check["max_abs_err"] == 0,
         "ms": block["ms"], "plain_ms": block["plain_ms"], "bound_ms": block["bound_ms"],
         "bound_by": block["bound_by"], "library_ms": block["library_ms"],

@@ -39,6 +39,10 @@ their grad back whole (an all-gather) in the same way.  Between a
 `gather_model` and a `split_to_model` the compute is replicated, and
 nothing is summed over `model` in the backward.
 
+The serving steps enter the same plan (with the caches' placements) and
+run no backward; decode's partial softmax reduces its max and sum of exps
+over `model` (`all_reduce_model`).
+
 Every collective is a functional collective (`_c10d_functional` ops), so
 the dry-run's `CollectiveTally` and `CommDebugMode` count them.  Axes of
 size 1 are skipped: on a 1 x 1 mesh nothing here runs a collective.
@@ -48,6 +52,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import math
 
 import torch
@@ -81,43 +86,58 @@ def _ar(x, group, op="sum"):
 class Plan:
     """The mesh in use and the placements of the params the step passes as
     local shards: `placements` is the params' tree with each leaf's
-    placements (one per mesh dim) in its place."""
+    placements (one per mesh dim) in its place.  The serving steps add the
+    caches' placements (`caches`, the cache list's tree), and say whether
+    the batch is split over the dp axes (`batch_split`; where the global
+    batch does not divide over them it is replicated, and the activations
+    with it).  Its mesh-derived properties are computed once, at first use:
+    the layers read them at every block."""
 
     mesh: object
     placements: object
+    caches: object = None
+    batch_split: bool = True
 
     def _dims(self, names) -> tuple:
         return tuple(i for i, a in enumerate(self.mesh.mesh_dim_names)
                      if a in names and self.mesh.size(i) > 1)
 
-    @property
+    @functools.cached_property
     def dp_dims(self) -> tuple:
-        """The dp axes' mesh dims of size > 1, major to minor."""
+        """The dp axes' mesh dims of size > 1, major to minor: the params'
+        FSDP axes."""
         return self._dims(shd.dp_axes(self.mesh))
 
-    @property
+    @functools.cached_property
+    def batch_dims(self) -> tuple:
+        """The mesh dims that split the batch: `dp_dims`, or none where the
+        batch is replicated."""
+        return self.dp_dims if self.batch_split else ()
+
+    @functools.cached_property
     def model_dim(self):
         dims = self._dims(("model",))
         return dims[0] if dims else None
 
-    @property
+    @functools.cached_property
     def dp_size(self) -> int:
-        return math.prod(self.mesh.size(i) for i in self.dp_dims)
+        """The count of batch shards (`batch_dims`)."""
+        return math.prod(self.mesh.size(i) for i in self.batch_dims)
 
-    @property
+    @functools.cached_property
     def dp_rank(self) -> int:
-        """This rank's index over the dp axes, major to minor: its batch
+        """This rank's index over `batch_dims`, major to minor: its batch
         shard's place in the global batch."""
         rank, coord = 0, self.mesh.get_coordinate()
-        for i in self.dp_dims:
+        for i in self.batch_dims:
             rank = rank * self.mesh.size(i) + coord[i]
         return rank
 
-    @property
+    @functools.cached_property
     def model_size(self) -> int:
         return 1 if self.model_dim is None else self.mesh.size(self.model_dim)
 
-    @property
+    @functools.cached_property
     def model_rank(self) -> int:
         return 0 if self.model_dim is None else self.mesh.get_coordinate()[self.model_dim]
 
@@ -141,10 +161,10 @@ def use_plan(plan: Plan | None):
 
 
 @contextlib.contextmanager
-def sharded(mesh, placements):
+def sharded(mesh, placements, caches=None, batch_split: bool = True):
     """Within the block the model computes on local shards placed by
     `placements` (see `Plan`), under `sharding.use_mesh(mesh)`."""
-    with use_plan(Plan(mesh, placements)), shd.use_mesh(mesh):
+    with use_plan(Plan(mesh, placements, caches, batch_split)), shd.use_mesh(mesh):
         yield
 
 
@@ -361,8 +381,8 @@ def gather(t: torch.Tensor, place, offset: int = 0) -> torch.Tensor:
 
 def gather_tree(tree: dict, places: dict | None, offset: int = 1) -> dict:
     """`gather` over a block's params (a rep's slices: `offset` 1).  `places`
-    None (no plan) gives `tree` back."""
-    if places is None:
+    None (no plan), or no dp axis of size > 1, gives `tree` back."""
+    if places is None or not current().dp_dims:
         return tree
 
     def walk(node, place):
@@ -432,6 +452,13 @@ def split_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _SplitGather.apply(x, dim % x.dim(), plan.group(plan.model_dim), plan.model_size, plan.model_rank)
 
 
+def all_reduce_model(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """`x` reduced (`op`: "sum" or "max") over `model`, replicated; no grad
+    (serving's partial-softmax statistics)."""
+    plan = current()
+    return x if plan.model_dim is None else _ar(x, plan.group(plan.model_dim), op)
+
+
 def vocab_to_model(table: torch.Tensor) -> torch.Tensor:
     """(V, d / model) -> (V / model, d): a table whose columns are split over
     `model` exchanged so that its rows are (one all-to-all)."""
@@ -481,7 +508,7 @@ def logsumexp(x: torch.Tensor, split: bool = False) -> torch.Tensor:
 def all_reduce_dp(x: torch.Tensor) -> torch.Tensor:
     """The sum of `x` over the dp ranks (each rank's grad term summed back)."""
     plan = current()
-    for i in plan.dp_dims:
+    for i in plan.batch_dims:
         x = _SumBoth.apply(x, plan.group(i))
     return x
 
@@ -489,7 +516,7 @@ def all_reduce_dp(x: torch.Tensor) -> torch.Tensor:
 def gather_dp(x: torch.Tensor, dim: int) -> torch.Tensor:
     """`x`'s chunks along `dim` gathered over the dp ranks, in dp rank order."""
     plan = current()
-    for i in reversed(plan.dp_dims):
+    for i in reversed(plan.batch_dims):
         x = _GatherSum.apply(x, dim % x.dim(), plan.group(i))
     return x
 
@@ -498,7 +525,7 @@ def reduce_scatter_dp(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The sum of `x` over the dp ranks, this rank keeping its chunk along
     `dim` (chunk `dp_rank` of `dp_size`)."""
     plan = current()
-    for i in plan.dp_dims:
+    for i in plan.batch_dims:
         x = _ScatterSum.apply(x, dim % x.dim(), plan.group(i))
     return x
 
@@ -506,6 +533,6 @@ def reduce_scatter_dp(x: torch.Tensor, dim: int) -> torch.Tensor:
 def gather_dp_ints(x: torch.Tensor) -> torch.Tensor:
     """Integer `x` (no grad) gathered over the dp ranks along dim 0."""
     plan = current()
-    for i in reversed(plan.dp_dims):
+    for i in reversed(plan.batch_dims):
         x = _ag(x, 0, plan.group(i))
     return x

@@ -17,10 +17,11 @@ analyses; these numbers are the port's own and are not held to XLA's:
     `parse_collectives` reports them for the reference;
   * memory: from the local shapes (`sharding.local_shape` over the
     abstract mesh): argument, output and aliased (donated) bytes, and as
-    temporaries the params' gathered copies (train: one rep's block leaves
-    gathered over dp, model shards kept where the layers split the work,
-    the encoder, embedding and head; serving: the whole model plus the
-    local batch's whole caches).  No activation peak is computed on meta.
+    temporaries the params' gathered copies: one rep's block leaves
+    gathered over dp (every rep's in a train step without remat), model
+    shards kept where the layers split the work, the encoder, embedding and
+    head.  The serving steps' caches are arguments and outputs at their
+    local shapes.  No activation peak is computed on meta.
 
 The pass runs the step at 1 and 2 pattern repetitions (`_depth_variant`)
 and extrapolates to full depth, affine in depth as the reference does.
@@ -60,7 +61,7 @@ from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 from repro_torch.optim import OptConfig
-from repro_torch.tree import keystr, leaves, leaves_with_path, tree_map, unflatten
+from repro_torch.tree import keystr, leaves, leaves_with_path, unflatten
 
 REPORT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "reports", "dryrun_torch")
 
@@ -72,11 +73,12 @@ OPT_POLICY = {
 }
 
 METHOD = ("fake-world pass (torch 'fake' process group, meta DTensors) at 1 and 2 pattern reps, "
-          "affine in depth; flops: FlopCounterMode, matmul-class ops only; collectives: functional "
-          "collectives' bytes; memory from the local shapes, temp = the gathered params (train: one "
-          "rep over dp with model shards kept, + encoder, embedding, head; serving: the whole model "
-          "+ the local batch's whole caches), no activation peak; bytes = arguments + outputs + "
-          "the gathered copies written and read once")
+          "affine in depth; the sharded train, prefill and decode steps; flops: FlopCounterMode, "
+          "matmul-class ops only; collectives: functional collectives' bytes; memory from the local "
+          "shapes (caches placed by cache_shardings), temp = the gathered params (one rep over dp "
+          "with model shards kept, every rep in a train step without remat, + encoder, embedding, "
+          "head), no activation peak; bytes = arguments + outputs + the gathered copies written and "
+          "read once")
 
 # ---------------------------------------------------------------------------
 # collective accounting (the reference parses XLA's per-device HLO)
@@ -311,21 +313,16 @@ def _train_gather_bytes(cfg, params, shardings, mesh, kept=_kept_over_model) -> 
 def memory_bytes(cfg, shape, mesh) -> dict:
     """The cell's memory per device from the local shapes: arguments,
     outputs, aliased outputs (donated arguments), and as temporaries the
-    params' gathered copies (train: `_train_gather_bytes`; serving: the
-    whole model, plus the local batch's whole caches, which the step holds
-    before its model shard is kept)."""
+    params' gathered copies (`_train_gather_bytes`; the serving steps,
+    which keep no backward, hold one rep's, as a train step with remat
+    does).  The caches count as the serving steps' arguments and outputs,
+    at their local shapes."""
     cell = build_cell(cfg, shape, mesh)
     args = sum(_tree_bytes(cell.inputs[k], cell.in_sh[k], mesh) for k in cell.in_sh)
     outs = sum(_tree_bytes(cell.outputs[k], cell.out_sh[k], mesh) for k in cell.out_sh)
     alias = sum(_tree_bytes(cell.outputs[k], cell.out_sh[k], mesh) for k in cell.donated)
-    if cell.kind == "train":
-        temp = _train_gather_bytes(cfg, cell.inputs["params"], cell.in_sh["params"], mesh)
-    else:
-        temp = _whole_bytes(cell.inputs["params"])
-    if cell.kind != "train":
-        dp = math.prod(shd.axis_sizes(mesh)[a] for a in shd.dp_axes(mesh))
-        caches = cell.outputs["caches"]
-        temp += sum(t.numel() * t.element_size() // (dp if t.shape[1] % dp == 0 else 1) for t in leaves(caches))
+    gathered = cfg if cell.kind == "train" else dataclasses.replace(cfg, remat=True)
+    temp = _train_gather_bytes(gathered, cell.inputs["params"], cell.in_sh["params"], mesh)
     return dict(argument_bytes=args, output_bytes=outs, temp_bytes=temp,
                 peak_bytes=args + outs - alias + temp, alias_bytes=alias)
 
@@ -353,13 +350,13 @@ def run_step(cfg, shape, cell: Cell, args: dict, dmesh) -> None:
         step = steps.make_sharded_train_step(cfg, cell.opt_cfg, dmesh)
         step(args["params"], args["opt_state"], batch, 1)
         return
-    params = tree_map(lambda d: d.full_tensor(), args["params"])
     if cell.kind == "prefill":
         batch = {k: _local_batch(v, dmesh) for k, v in args["batch"].items()}
-        T.prefill(params, cfg, batch, shape.seq_len)
+        step = steps.make_sharded_prefill_step(cfg, shape.seq_len, dmesh, shape.global_batch)
+        step(args["params"], batch)
     else:
-        caches = tree_map(lambda d: _local_batch(d, dmesh), args["caches"])
-        T.decode_step(params, cfg, _local_batch(args["token"], dmesh), caches, shape.seq_len - 1)
+        step = steps.make_sharded_decode_step(cfg, dmesh, shape.global_batch)
+        step(args["params"], _local_batch(args["token"], dmesh), args["caches"], shape.seq_len - 1)
 
 
 def measure_pass(cfg, shape, mesh, dmesh) -> dict:

@@ -1,5 +1,6 @@
-"""The sharded train step on a (data, model) mesh of this host's cards,
-held against the single-device step on the global batch, and both timed.
+"""The sharded train and serving steps on a (data, model) mesh of this
+host's cards, held against the single-device steps on the global batch,
+and both timed.
 
 Each rank draws the same weights (a seeded generator on its card), takes
 step 1 of `make_train_step` on the global batch (every dp rank's rows, in
@@ -8,8 +9,14 @@ the largest |param or state difference|, the update's error (per leaf,
 the 2-norm of the difference of the two updates over the 2-norm of the
 single-device update; the worst leaf), and the loss, aux loss and grad
 norm.  Then `--steps` more steps of each, timed alike (CUDA events around
-each step; the median of steps 2.., the first step apart).  Rank 0 prints
-one JSON line per case and writes them all to `--out`.
+each step; the median of steps 2.., the first step apart).  The serving cases
+(`SERVE_CASES`) run one device's `T.prefill` and greedy `T.decode_step`s
+on the global batch, then `make_sharded_prefill_step` and
+`make_sharded_decode_step` on the rank's rows, teacher-forced on those
+greedy tokens: the largest relative error of the logits and of every
+gathered cache leaf, and the prefill and per-step decode ms of both, timed
+alike.  Rank 0 prints one JSON line per case and writes them all to
+`--out`.
 
 Usage (one process per card; NCCL, met through a `file://` store):
   python -m repro_torch.launch.parallel_check --data 2 --model 2 [--out results.json]
@@ -35,6 +42,7 @@ from repro_torch.data.pipeline import SyntheticStream
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import steps as S
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.serve import make_inputs
 from repro_torch.models import transformer as T
 from repro_torch.optim import OptConfig
 from repro_torch.tree import leaves
@@ -56,6 +64,13 @@ CASES = (
     ("llama-vision reduced", "llama-3.2-vision-11b", "adamw", None, 4, 32, True),
     ("qwen3-moe full width, 2 layers", "qwen3-moe-30b-a3b", "adamw", {"num_layers": 2}, 4, 512, False),
 )
+
+
+#: (name, arch, batch per dp rank, prompt, decode steps): the reduced dense,
+#: MoE, SSD, hybrid, encoder-decoder and cross-attention archs, served.
+SERVE_CASES = tuple((f"{arch} reduced", arch, 4, 16, 4) for arch in (
+    "qwen3-8b", "qwen3-moe-30b-a3b", "mamba2-780m", "jamba-1.5-large-398b", "whisper-small",
+    "llama-3.2-vision-11b"))
 
 
 def _sync(device) -> None:
@@ -150,6 +165,50 @@ def run_case(case, mesh, device, steps: int, seed: int = 0) -> dict:
     return out
 
 
+def _rel(ref: torch.Tensor, got: torch.Tensor) -> float:
+    ref, got = ref.float(), got.float()
+    return float((ref - got).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def run_serve_case(case, mesh, device, seed: int = 0) -> dict:
+    """One serving case: one device's prefill and greedy decode steps on the
+    global batch, then the sharded steps on this rank's rows, teacher-forced
+    on the same tokens; their distance and both timed alike."""
+    name, arch, batch, prompt, gen = case
+    cfg = get_config(arch).reduced()
+    rank, hosts = S.data_parallel_rank(mesh)
+    rng = torch.Generator(device=device)
+    rng.manual_seed(seed)
+    params = T.init_params(cfg, rng, device)
+    inputs = {k: torch.from_numpy(v).to(device) for k, v in make_inputs(cfg, batch * hosts, prompt, seed).items()}
+    cache_len = prompt + gen
+    with torch.inference_mode():
+        (logits, caches), single_prefill = _timed(lambda: T.prefill(params, cfg, inputs, cache_len), device)
+        ref, tokens, single_ms = [logits], [], []
+        for i in range(gen):
+            tokens.append(torch.argmax(ref[-1], dim=-1).to(torch.int32))
+            (logits, caches), ms = _timed(lambda: T.decode_step(params, cfg, tokens[-1], caches, prompt + i), device)
+            ref.append(logits)
+            single_ms.append(ms)
+        placed = shd.distribute_tree(params, shd.param_shardings(mesh, params))
+        prefill, decode = S.make_sharded_prefill_step(cfg, cache_len, mesh), S.make_sharded_decode_step(cfg, mesh)
+        rows = slice(rank * batch, (rank + 1) * batch)
+        (logits, got_caches), sharded_prefill = _timed(
+            lambda: prefill(placed, {k: v[rows] for k, v in inputs.items()}), device)
+        got, sharded_ms = [logits], []
+        for i, tok in enumerate(tokens):
+            (logits, got_caches), ms = _timed(lambda: decode(placed, tok[rows], got_caches, prompt + i), device)
+            got.append(logits)
+            sharded_ms.append(ms)
+        logit_err = max(_rel(a, b.full_tensor()) for a, b in zip(ref, got))
+        cache_err = max(_rel(c[k], g[k].full_tensor()) for c, g in zip(caches, got_caches) for k in c)
+    return {"case": name, "arch": arch, "kind": "serve", "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "batch_per_dp_rank": batch, "prompt": prompt, "gen": gen, "logits_rel_err": logit_err,
+            "caches_rel_err": cache_err, "sharded_prefill_ms": sharded_prefill, "single_prefill_ms": single_prefill,
+            "sharded_decode_ms": float(np.median(sharded_ms)), "single_decode_ms": float(np.median(single_ms)),
+            "sharded_decode_ms_all": sharded_ms, "single_decode_ms_all": single_ms}
+
+
 def _rank(rank, world, args, store):
     cuda = args.device == "cuda"
     device = torch.device("cuda", rank) if cuda else torch.device("cpu")
@@ -162,8 +221,10 @@ def _rank(rank, world, args, store):
     try:
         mesh = make_host_mesh(data=args.data, model=args.model, device=device.type)
         records = []
-        for case in CASES if cuda else [c for c in CASES if c[3] is None]:  # full width on cards only
-            records.append(run_case(case, mesh, device, args.steps))
+        train = CASES if cuda else [c for c in CASES if c[3] is None]  # full width on cards only
+        runs = [(run_case, c, args.steps) for c in train] + [(run_serve_case, c) for c in SERVE_CASES]
+        for fn, case, *more in runs:
+            records.append(fn(case, mesh, device, *more))
             if rank == 0:
                 print(json.dumps(records[-1]), flush=True)
             if cuda:

@@ -14,6 +14,9 @@ sharding rules (the reference gets its sharded step from `jax.jit` with
 in/out shardings): data parallel over the dp axes, with the params and
 optimizer state sharded (FSDP) and gathered a rep at a time, tensor and
 expert parallel over the model axis (`distributed.parallel`).
+`make_sharded_prefill_step` / `make_sharded_decode_step` serve the same
+way, over `DTensor` caches placed by `cache_shardings` (the KV caches'
+length and the SSD states' heads over the model axis, the batch over dp).
 """
 from __future__ import annotations
 
@@ -233,6 +236,95 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int):
 def make_decode_step(cfg: ModelConfig):
     def decode_step(params, token, caches, pos):
         return T.decode_step(params, cfg, token, caches, pos)
+
+    return decode_step
+
+
+def _placements(tree):
+    """A `DTensor` tree's placements, each leaf's as a tuple in its place."""
+    return unflatten(tree, [tuple(d.placements) for d in leaves(tree)])
+
+
+def _to_local(tree):
+    return unflatten(tree, [d.to_local() for d in leaves(tree)])
+
+
+class _Serving:
+    """What the sharded serving steps share: the mesh's dp size, whether a
+    batch is split over it, and the logits' placement."""
+
+    def __init__(self, cfg: ModelConfig, mesh, global_batch: int | None):
+        self.cfg, self.mesh = cfg, mesh
+        self.dp = math.prod(shd.axis_sizes(mesh)[a] for a in shd.dp_axes(mesh))
+        self.split = global_batch is None or global_batch % self.dp == 0
+
+    def global_batch(self, local: int) -> int:
+        return local * self.dp if self.split else local
+
+    def logits(self, logits: torch.Tensor) -> DTensor:
+        """This rank's logits (B, V or V / model) placed (dp, model) as the
+        reference's `logits_spec`: the vocab replicated where it does not
+        divide over `model`, and where it does, this rank's columns (taken
+        here if the head gave the whole row)."""
+        b, v = self.global_batch(logits.shape[0]), self.cfg.vocab_size
+        place = shd.named(self.mesh, shd.P(shd.dp_axes(self.mesh) or None, "model"), (b, v)).placements()
+        for i, p in enumerate(place):
+            if p.is_shard(1) and logits.shape[1] == v:
+                logits = torch.chunk(logits, self.mesh.size(i), 1)[self.mesh.get_coordinate()[i]].contiguous()
+        return DTensor.from_local(logits, self.mesh, place, run_check=False)
+
+
+def make_sharded_prefill_step(cfg: ModelConfig, cache_len: int, mesh, global_batch: int | None = None):
+    """The prefill step over `DTensor` params placed by `param_shardings` on
+    the `DeviceMesh` `mesh`, and this rank's batch shard (a dict of tensors;
+    the whole batch where `global_batch` does not divide over the dp axes,
+    which the reference's `batch_shardings` then replicate).  The model
+    runs on the local shards inside `parallel.sharded` (`T.prefill`): each
+    rep's block leaves gathered over dp as it starts, attention, the MLP,
+    MoE (global-batch routing), the SSD, the encoder and the head split over
+    `model` as in the train step.  Returns (logits, caches): the logits
+    placed (dp, model), and the caches as `DTensor`s placed by
+    `cache_shardings`, made at their local shapes (`DTensor.from_local`):
+    the batch over dp, a KV or cross cache's length over `model` (each rank
+    holds positions [r L / m, (r + 1) L / m)), the SSD state's heads and
+    the conv history's channels over `model`, each where it divides.  At
+    world size 1 it computes what `make_prefill_step` computes, bit for
+    bit."""
+    serving = _Serving(cfg, mesh, global_batch)
+
+    def prefill_step(params, batch):
+        enc = batch.get("frames", batch.get("image_embeds"))
+        whole = T.init_cache(cfg, serving.global_batch(batch["tokens"].shape[0]), cache_len,
+                             0 if enc is None else enc.shape[1], device="meta")
+        places = [{k: tuple(sh.placements()) for k, sh in c.items()} for c in shd.cache_shardings(mesh, whole)]
+        with parallel.sharded(mesh, _placements(params), places, serving.split):
+            logits, caches = T.prefill(_to_local(params), cfg, batch, cache_len)
+        caches = [{k: DTensor.from_local(t, mesh, p[k], run_check=False) for k, t in c.items()}
+                  for c, p in zip(caches, places)]
+        return serving.logits(logits), caches
+
+    return prefill_step
+
+
+def make_sharded_decode_step(cfg: ModelConfig, mesh, global_batch: int | None = None):
+    """The decode step over `DTensor` params (as `make_sharded_prefill_step`
+    takes them), this rank's tokens (B / dp,) and the prefill step's
+    `DTensor` caches, which it updates in place (their local shards) and
+    returns.  Attention over a cache whose length is split over `model`
+    scores each rank's slice and reduces the softmax over `model`
+    (`layers.attention_decode`: the max and the sum of exps all-reduced,
+    the probs normalised before the bf16 cast, the PV products summed);
+    the SSD steps each rank's heads (`ssm.mamba_decode`).  Returns (logits
+    placed (dp, model), caches).  At world size 1 it computes what
+    `make_decode_step` computes, bit for bit."""
+    serving = _Serving(cfg, mesh, global_batch)
+
+    def decode_step(params, token, caches, pos):
+        places = [{k: tuple(d.placements) for k, d in c.items()} for c in caches]
+        local = [{k: d.to_local() for k, d in c.items()} for c in caches]
+        with parallel.sharded(mesh, _placements(params), places, serving.split):
+            logits, _ = T.decode_step(_to_local(params), cfg, token, local, pos)
+        return serving.logits(logits), caches
 
     return decode_step
 

@@ -12,8 +12,12 @@ functions take local shards and compute their own slice: attention (self
 and cross) and the dense MLP tensor-parallel where `model` splits their
 heads and hidden dim, MoE expert-parallel over `model` with the routing of
 the global batch (capacity, sort order and aux loss over every dp rank's
-tokens).  Without a plan, or where nothing is split, they run the
-single-device code.
+tokens).  In the sharded serving steps prefill hands back every kv head
+for the caches (`attention(..., return_kv=True)`), and decode gathers q,
+k and v whole and attends over a cache whose length is split over `model`
+with a partial softmax reduced over it (`attention_decode`,
+`cross_decode`, `split_softmax`).  Without a plan, or where nothing is
+split, they run the single-device code.
 """
 from __future__ import annotations
 
@@ -115,8 +119,17 @@ def attn_init(cfg: ModelConfig, lead: tuple, generator, device) -> dict:
     return p
 
 
+def _whole_proj(x, w, full: int):
+    """`x @ w` of all `full` columns: in the sharded step, where `w`'s
+    columns are split over `model`, this rank's block, gathered whole
+    (replicated over `model`)."""
+    if P.model_split(w.shape[-1], full):
+        return P.gather_model(P.column_parallel(x, w.to(COMPUTE_DTYPE))[0], -1)
+    return x @ w.to(COMPUTE_DTYPE)
+
+
 def _project_q(p, cfg: ModelConfig, xq):
-    q = (xq @ p["wq"].to(COMPUTE_DTYPE)).reshape(*xq.shape[:-1], cfg.num_heads, cfg.hd)
+    q = _whole_proj(xq, p["wq"], cfg.num_heads * cfg.hd).reshape(*xq.shape[:-1], cfg.num_heads, cfg.hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
     return q
@@ -125,8 +138,7 @@ def _project_q(p, cfg: ModelConfig, xq):
 def _project_qkv(p, cfg: ModelConfig, xq, xkv):
     kv, hd = cfg.num_kv_heads, cfg.hd
     q = _project_q(p, cfg, xq)
-    k = (xkv @ p["wk"].to(COMPUTE_DTYPE)).reshape(*xkv.shape[:-1], kv, hd)
-    v = (xkv @ p["wv"].to(COMPUTE_DTYPE)).reshape(*xkv.shape[:-1], kv, hd)
+    k, v = (_whole_proj(xkv, p[w], kv * hd).reshape(*xkv.shape[:-1], kv, hd) for w in ("wk", "wv"))
     if cfg.qk_norm:
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
@@ -166,14 +178,16 @@ def _heads(y, split: bool, n: int, hd: int, lo: int, hi: int):
     return y.reshape(*y.shape[:-1], n, hd)[..., lo:hi, :]
 
 
-def _attention_tp(p, cfg: ModelConfig, x, positions, causal: bool, kv=None):
+def _attention_tp(p, cfg: ModelConfig, x, positions, causal: bool, kv=None, return_kv: bool = False):
     """Self (kv None) or cross attention with `wq`'s columns (and `wo`'s
     rows) split over `model`: this rank's column range of the heads, whole
     heads for rope and qk-norm (q gathered where the split cuts a head), k
     / v gathered whole and each rank taking the kv heads its q heads use;
     `wo` row-parallel.  Cross-attention's k / v come from `kv`, replicated
     over `model` like `x`, through its own column-parallel projections; no
-    rope, no causal mask."""
+    rope, no causal mask.  With `return_kv` (prefill, no grad) k is normed
+    and roped over all kv heads, and (out, k, v) of all of them come back
+    for the cache."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     rep = h // kvh
     width = h * hd // P.current().model_size
@@ -195,59 +209,131 @@ def _attention_tp(p, cfg: ModelConfig, x, positions, causal: bool, kv=None):
     else:
         q = q.reshape(*x.shape[:-1], hi - lo, hd)
     klo, khi = lo // rep, (hi - 1) // rep + 1
-    if kv_split:
-        k, v = (_heads(y, True, kvh, hd, klo, khi) for y in kv_proj)
+    if return_kv:  # all kv heads, gathered whole; this rank's taken after their norm and rope
+        ys = kv_proj if kv_split else tuple(xkv @ p[w].to(COMPUTE_DTYPE) for w in ("wk", "wv"))
+        k_all, v_all = ((P.gather_model(y, -1) if kv_split else y).reshape(*xkv.shape[:-1], kvh, hd) for y in ys)
+        if cfg.qk_norm:
+            q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+            k_all = rmsnorm(k_all, p["k_norm"], cfg.norm_eps)
+        if kv is None:
+            q = rope(q, positions, cfg.rope_theta)
+            k_all = rope(k_all, positions, cfg.rope_theta)
+        k, v = k_all[..., klo:khi, :], v_all[..., klo:khi, :]
     else:
-        k, v = (_heads(xkv @ p[w].to(COMPUTE_DTYPE), False, kvh, hd, klo, khi) for w in ("wk", "wv"))
-    if cfg.qk_norm:
-        q = rmsnorm(q, P.copy_to_model(p["q_norm"]), cfg.norm_eps)
-        k = rmsnorm(k, P.copy_to_model(p["k_norm"]), cfg.norm_eps)
-    if kv is None:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        if kv_split:
+            k, v = (_heads(y, True, kvh, hd, klo, khi) for y in kv_proj)
+        else:
+            k, v = (_heads(xkv @ p[w].to(COMPUTE_DTYPE), False, kvh, hd, klo, khi) for w in ("wk", "wv"))
+        if cfg.qk_norm:
+            q = rmsnorm(q, P.copy_to_model(p["q_norm"]), cfg.norm_eps)
+            k = rmsnorm(k, P.copy_to_model(p["k_norm"]), cfg.norm_eps)
+        if kv is None:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
     if lo % rep or (hi - lo) % rep:  # q heads not in whole kv groups: one kv head per q head
         idx = torch.arange(lo, hi, device=x.device) // rep - klo
         k, v = k[..., idx, :], v[..., idx, :]
     out = _sdpa(q, k, v, cfg, causal=causal and kv is None).reshape(*x.shape[:-1], (hi - lo) * hd)
     out = out[..., c0 - lo * hd:c0 - lo * hd + width]
-    return P.row_parallel(out, p["wo"].to(COMPUTE_DTYPE))
+    out = P.row_parallel(out, p["wo"].to(COMPUTE_DTYPE))
+    return (out, k_all, v_all) if return_kv else out
 
 
-def attention(p, cfg: ModelConfig, x, positions, causal=True, kv=None):
-    """Self (kv=None) or cross attention.  Returns (B, S, D)."""
+def attention(p, cfg: ModelConfig, x, positions, causal=True, kv=None, return_kv: bool = False):
+    """Self (kv=None) or cross attention.  Returns (B, S, D), or with
+    `return_kv` (out, k, v): k / v (B, S_kv, KV, hd) of all kv heads as the
+    cache holds them (k normed and, for self-attention, roped)."""
     if P.model_split(p["wq"].shape[-1], cfg.num_heads * cfg.hd):
-        return _attention_tp(p, cfg, x, positions, causal, kv)
+        return _attention_tp(p, cfg, x, positions, causal, kv, return_kv)
     xkv = kv if kv is not None else x
     q, k, v = _project_qkv(p, cfg, x, xkv)
     if kv is None:  # self-attn: rotary on both
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     out = _sdpa(q, k, v, cfg, causal=causal and kv is None)
-    return out.reshape(*x.shape[:-1], -1) @ p["wo"].to(COMPUTE_DTYPE)
+    out = out.reshape(*x.shape[:-1], -1) @ p["wo"].to(COMPUTE_DTYPE)
+    return (out, k, v) if return_kv else out
 
 
-def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int):
-    """One-token decode: x (B, 1, D), cache (B, L, KV, hd), pos an int.
+# ---------------------------------------------------------------------------
+# one-token decode; in the sharded serving step over a cache whose length
+# is split over `model`
+# ---------------------------------------------------------------------------
 
-    Returns (out, cache_k, cache_v): the caches are written in place at
-    `pos` (the reference updates a donated cache functionally)."""
-    q, k, v = _project_qkv(p, cfg, x, x)
-    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+
+def _out_proj(p, cfg: ModelConfig, out):
+    """`out` (all heads, replicated) @ `wo`: row-parallel where `wo`'s rows
+    are split over `model`."""
+    w = p["wo"].to(COMPUTE_DTYPE)
+    if P.model_split(w.shape[0], cfg.num_heads * cfg.hd):
+        return P.row_parallel(out, w, whole=True)
+    return out @ w
+
+
+def split_softmax(scores):
+    """Softmax over the last dim of `scores` (f32), whose columns are split
+    over `model`, probs in bf16: the max and the sum of exps all-reduced
+    over `model`, the probs normalised before the cast (the reference's
+    `jax.nn.softmax(...).astype(bf16)` of the whole row)."""
+    m = P.all_reduce_model(torch.amax(scores, dim=-1, keepdim=True), "max")
+    e = torch.exp(scores - m)
+    z = P.all_reduce_model(torch.sum(e, dim=-1, keepdim=True))
+    return (e / z).to(COMPUTE_DTYPE)
+
+
+def _attend_one(q, cache_k, cache_v, split: bool, valid=None):
+    """q (B, 1, H, hd) over a cache (B, L, KV, hd), at the positions where
+    `valid` (1, 1, 1, L) holds (all without it); with `split`, the cache holds this
+    rank's slice of the length: `split_softmax`, each rank's PV in f32,
+    summed over `model`.  Returns (B, 1, H x hd) bf16."""
     b, _, h, hd = q.shape
     kvh = cache_k.shape[2]
     qg = q.reshape(b, kvh, h // kvh, hd)
     scores = torch.einsum("bgrh,bkgh->bgrk", qg, cache_k.to(COMPUTE_DTYPE)).to(F32)
     scores = scores / np.float32(np.sqrt(hd))
-    invalid = torch.arange(cache_k.shape[1], device=x.device)[None, None, None, :] > pos
-    scores = scores.masked_fill(invalid, -1e30)
-    probs = _softmax_bf16(scores)
-    out = torch.einsum("bgrk,bkgh->bgrh", probs, cache_v.to(COMPUTE_DTYPE))
-    out = out.reshape(b, 1, h * hd) @ p["wo"].to(COMPUTE_DTYPE)
-    return out, cache_k, cache_v
+    if valid is not None:
+        scores = scores.masked_fill(~valid, -1e30)
+    if split:  # a rank whose positions are all masked adds zeros (exp(-1e30 - max) = 0)
+        out = torch.einsum("bgrk,bkgh->bgrh", split_softmax(scores).to(F32), cache_v.to(F32))
+        out = P.all_reduce_model(out).to(COMPUTE_DTYPE)
+    else:
+        out = torch.einsum("bgrk,bkgh->bgrh", _softmax_bf16(scores), cache_v.to(COMPUTE_DTYPE))
+    return out.reshape(b, 1, h * hd)
+
+
+def attention_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos: int, split: bool = False):
+    """One-token decode: x (B, 1, D), cache (B, L, KV, hd), pos an int.
+
+    Returns (out, cache_k, cache_v): the caches are written in place at
+    `pos` (the reference updates a donated cache functionally).  In the
+    sharded serving step q, k and v are gathered whole over `model`, and
+    with `split` the cache holds this rank's slice [r L, (r + 1) L) of the
+    length: the rank that holds `pos` writes it, each rank scores its
+    slice, and the softmax and PV are reduced over `model`; `wo`
+    row-parallel."""
+    q, k, v = _project_qkv(p, cfg, x, x)
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    n = cache_k.shape[1]
+    start = P.current().model_rank * n if split else 0
+    if start <= pos < start + n:
+        cache_k[:, pos - start] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, pos - start] = v[:, 0].to(cache_v.dtype)
+    valid = torch.arange(start, start + n, device=x.device)[None, None, None, :] <= pos
+    out = _attend_one(q, cache_k, cache_v, split, valid)
+    return _out_proj(p, cfg, out), cache_k, cache_v
+
+
+def cross_decode(p, cfg: ModelConfig, x, cache_k, cache_v, split: bool = False):
+    """One-token cross-attention over the precomputed (B, S_enc, KV, hd)
+    caches; with `split`, this rank's slice of S_enc (`attention_decode`)."""
+    q = _project_q(p, cfg, x)
+    if split:
+        out = _attend_one(q, cache_k, cache_v, True)
+    else:
+        out = _sdpa(q, cache_k, cache_v, cfg, causal=False).reshape(x.shape[0], 1, -1)
+    return _out_proj(p, cfg, out)
 
 
 # ---------------------------------------------------------------------------

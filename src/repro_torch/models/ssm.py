@@ -11,7 +11,8 @@ dt (B, S, H), A (H,) negative decay rates.
 Inside the sharded train step (`distributed.parallel.sharded`) the mixer
 takes its model shards (the reference's rules: `in_proj` columns, `conv_w`
 channels, `a_log` / `skip_d` / `dt_bias` heads, `out_proj` rows) and each
-rank computes the SSD of its own heads (`mamba_forward`).
+rank computes the SSD of its own heads (`mamba_forward`); in the sharded
+serving steps each rank also steps its own heads' state (`mamba_decode`).
 """
 from __future__ import annotations
 
@@ -335,6 +336,16 @@ def _ssd_heads(p, cfg: ModelConfig, z, xi, B, C, dt, init_state=None):
     return y.reshape(b, s, h * hp) * silu(z.reshape(b, s, h * hp)), state
 
 
+def _heads_split(p, cfg: ModelConfig) -> bool:
+    """Whether the mixer's heads are split over `model` here (`a_log`'s
+    are); the grouped form needs whole groups a rank."""
+    heads = P.model_split(p["a_log"].shape[-1], cfg.ssm_heads)
+    if heads and cfg.ssm_impl == "grouped" and cfg.ssm_groups % P.current().model_size:
+        raise ValueError(f"ssm_impl='grouped' splits whole groups over model: {cfg.ssm_groups} groups over "
+                         f"{P.current().model_size} ranks; use the baseline form")
+    return heads
+
+
 def mamba_forward(p, cfg: ModelConfig, x, init_state=None, conv_history=None):
     """Full-sequence mixer.  x: (B, S, D) bf16.  Returns (y, (conv_hist, state)).
 
@@ -365,12 +376,9 @@ def mamba_forward(p, cfg: ModelConfig, x, init_state=None, conv_history=None):
     z, xbc, dt = _split_proj(cfg, proj)
     xbc, conv_hist = _causal_conv(xbc, conv_w, p["conv_b"], conv_history)
     xi, B, C = _split_xbc(cfg, silu(xbc))
-    heads = P.model_split(p["a_log"].shape[-1], h)
+    heads = _heads_split(p, cfg)
     if cfg.ssm_impl == "grouped":
         B, C = B.reshape(b, s, g, n), C.reshape(b, s, g, n)
-        if heads and g % P.current().model_size:
-            raise ValueError(f"ssm_impl='grouped' splits whole groups over model: {g} groups over "
-                             f"{P.current().model_size} ranks; use the baseline form")
     else:
         B, C = _expand_groups(cfg, B), _expand_groups(cfg, C)
     z, xi = z.reshape(b, s, h, hp), xi.reshape(b, s, h, hp)
@@ -387,23 +395,53 @@ def mamba_forward(p, cfg: ModelConfig, x, init_state=None, conv_history=None):
 
 
 def mamba_decode(p, cfg: ModelConfig, x, conv_history, state):
-    """One-token mixer.  x (B, 1, D).  Returns (y, (conv_hist, state))."""
+    """One-token mixer.  x (B, 1, D).  Returns (y, (conv_hist, state)).
+
+    In the sharded serving step, on the mixer's model shards, split as in
+    `mamba_forward`: `in_proj` column-parallel and gathered; the conv
+    history (this rank's channels where they split over `model`) gathered
+    whole, the conv run replicated and the rank's channels of the new
+    history handed back; the rank's heads (`split_to_model`) stepped on
+    its `state` (its heads where `a_log` splits); y gathered, normed whole
+    and into the row-parallel `out_proj`."""
     b = x.shape[0]
-    h_heads, hp = cfg.ssm_heads, cfg.ssm_head_dim
-    proj = x @ p["in_proj"].to(COMPUTE_DTYPE)
+    h_heads, hp, g, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
+    di = cfg.d_inner
+    w = p["in_proj"].to(COMPUTE_DTYPE)
+    if P.model_split(w.shape[-1], 2 * di + 2 * g * n + h_heads):
+        proj = P.gather_model(P.column_parallel(x, w)[0], -1)
+    else:
+        proj = x @ w
+    conv_w = p["conv_w"]
+    if P.model_split(conv_w.shape[-1], di + 2 * g * n):
+        conv_w = P.gather_model(conv_w, -1)
+    conv_split = P.model_split(conv_history.shape[-1], di + 2 * g * n)
+    if conv_split:
+        conv_history = P.gather_model(conv_history, -1)
     z, xbc, dt = _split_proj(cfg, proj)
-    xbc, conv_hist = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_history)
+    xbc, conv_hist = _causal_conv(xbc, conv_w, p["conv_b"], conv_history)
+    if conv_split:
+        conv_hist = P.split_to_model(conv_hist, -1)
     xbc = silu(xbc)
     xi, B, C = _split_xbc(cfg, xbc)
-    dt = _softplus(dt.to(F32) + p["dt_bias"])[:, 0]  # (B,H)
-    A = -torch.exp(p["a_log"])
-    dA = dt * A  # (B,H)
     xh = xi.reshape(b, h_heads, hp)
-    xb = xh * dt[..., None].to(COMPUTE_DTYPE)
     Bh = _expand_groups(cfg, B)[:, 0]  # (B,H,N)
     Ch = _expand_groups(cfg, C)[:, 0]
+    dt = dt[:, 0]
+    heads = _heads_split(p, cfg)
+    if heads:  # this rank's heads
+        xh, Bh, Ch, dt = (P.split_to_model(t, 1) for t in (xh, Bh, Ch, dt))
+    dt = _softplus(dt.to(F32) + p["dt_bias"])  # (B,H)
+    A = -torch.exp(p["a_log"])
+    dA = dt * A  # (B,H)
+    xb = xh * dt[..., None].to(COMPUTE_DTYPE)
     y, state = ssd_decode_step(state, xb, dA, Bh, Ch)
     y = y + xh * p["skip_d"][None, :, None].to(COMPUTE_DTYPE)
-    y = y.reshape(b, 1, cfg.d_inner)
+    if heads:
+        y = P.gather_model(y, 1)
+    y = y.reshape(b, 1, di)
     y = rmsnorm(y * silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"].to(COMPUTE_DTYPE), (conv_hist, state)
+    w = p["out_proj"].to(COMPUTE_DTYPE)
+    if P.model_split(w.shape[0], di):
+        return P.row_parallel(y, w, whole=True), (conv_hist, state)
+    return y @ w, (conv_hist, state)

@@ -33,7 +33,12 @@ every leaf keeps its model shard: attention (self and cross), the MLP,
 MoE and the SSD mixer split the work, in the decoder and the whisper
 encoder alike (the SSD gathers its small `conv_w` whole, `ssm.
 MODEL_GATHERED`); the embedding is gathered at use, the head keeps the
-vocab split over `model` and the loss reduces over it.
+vocab split over `model` and the loss reduces over it.  `prefill` and
+`decode_step` run the same way inside the sharded serving steps
+(`launch.steps.make_sharded_prefill_step` / `make_sharded_decode_step`),
+on each rank's caches, placed by the plan's `caches`: a KV or cross
+cache holds the rank's slice of the length, the SSD state its heads, the
+conv history its channels, where the rules split them.
 """
 from __future__ import annotations
 
@@ -181,6 +186,18 @@ def _embed(params, tokens, plan):
     return x  # role tokens_act
 
 
+def _logits(params, cfg, plan, x):
+    """x (B, S, D) normed -> logits (B, S, V); in the sharded step this
+    rank's vocab columns where the head splits them over `model` (role
+    logits)."""
+    if plan is None:
+        return x @ _head(params).to(COMPUTE_DTYPE)
+    head = _sharded_head(params, plan).to(COMPUTE_DTYPE)
+    if head.shape[1] != cfg.vocab_size:
+        return P.column_parallel(x, head)[0]
+    return x @ head
+
+
 def _sharded_head(params, plan):
     """This rank's head in the sharded step: (d, V / model) where the vocab
     splits over `model` (role logits), else (d, V)."""
@@ -237,12 +254,7 @@ def forward(params, cfg: ModelConfig, batch):
         body = functools.partial(_apply_rep, cfg, plan, [b[r] for b in blocks], positions, enc_out)
         x, aux = checkpoint(body, x, aux, use_reentrant=False) if remat else body(x, aux)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    if plan is None:
-        return x @ _head(params).to(COMPUTE_DTYPE), aux
-    head = _sharded_head(params, plan).to(COMPUTE_DTYPE)
-    if head.shape[1] != cfg.vocab_size:  # role logits: vocab over model
-        return P.column_parallel(x, head)[0], aux
-    return x @ head, aux
+    return _logits(params, cfg, plan, x), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
@@ -301,82 +313,133 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, enc_len: int = 0, d
             for mixer, _ in cfg.pattern()]
 
 
-def _prefill_block(cfg, mixer, ffn, p, x, positions, enc_out, cache):
-    """Like `_apply_block`, but fills rep r's cache slice `cache` in place."""
+def _local_cache(cfg: ModelConfig, plan, batch: int, cache_len: int, enc_len: int, device):
+    """This rank's zeroed caches in the sharded serving step: the whole
+    caches' shapes (the global batch) cut by `plan.caches`' placements."""
+    whole = init_cache(cfg, batch * plan.dp_size, cache_len, enc_len, device="meta")
+    out = []
+    for c, places in zip(whole, plan.caches):
+        local = {}
+        for k, t in c.items():
+            shape = list(t.shape)
+            for i, place in enumerate(places[k]):
+                if place.is_shard():
+                    shape[place.dim] //= plan.mesh.size(i)
+            local[k] = torch.zeros(shape, dtype=t.dtype, device=device)
+        out.append(local)
+    return out
+
+
+def _serving_plan():
+    """The plan in use, which on local shards must hold the caches'
+    placements (the sharded serving steps enter it so)."""
+    plan = P.current()
+    if plan is not None and plan.caches is None:
+        raise ValueError("prefill / decode_step on local shards need the caches' placements: serve through "
+                         "launch.steps.make_sharded_prefill_step / make_sharded_decode_step")
+    return plan
+
+
+def _splits(plan, cache: dict, i: int) -> dict:
+    """{leaf: whether pattern position `i`'s cache leaf is split over
+    `model`} (a KV cache's length, the SSD state's heads, the conv's
+    channels); all False without a plan."""
+    if plan is None or plan.model_dim is None:
+        return dict.fromkeys(cache, False)
+    return {k: plan.caches[i][k][plan.model_dim].is_shard() for k in cache}
+
+
+def _fill(cache, kv, split: bool) -> None:
+    """Writes `kv` (B, S, KV, hd), positions [0, S), into `cache` (B, L,
+    KV, hd); with `split` the cache is this rank's slice [r L, (r + 1) L)
+    of the length, and takes the positions that fall in it."""
+    n = cache.shape[1]
+    start = P.current().model_rank * n if split else 0
+    stop = min(start + n, kv.shape[1])
+    if stop > start:
+        cache[:, :stop - start] = kv[:, start:stop]
+
+
+def _block_params(plan, blocks, i: int, r: int) -> dict:
+    """Rep `r`'s slice of pattern position `i`'s params; in the sharded step
+    gathered over dp (the scan body's site, role tokens_act)."""
+    p = _rep_slice(blocks[i], r)
+    return p if plan is None else P.gather_tree(p, plan.placements["blocks"][i])
+
+
+def _prefill_block(cfg, mixer, ffn, p, x, positions, enc_out, cache, split=None):
+    """Like `_apply_block`, but fills rep r's cache slice `cache` in place
+    (`split`: `_splits`, or nothing split)."""
+    split = split or dict.fromkeys(cache, False)
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    s = x.shape[1]
     if mixer in ("attn", "attn_nc", "attn_cross"):
-        q, k, v = L._project_qkv(p["mixer"], cfg, h, h)
-        q = L.rope(q, positions, cfg.rope_theta)
-        k = L.rope(k, positions, cfg.rope_theta)
-        out = L._sdpa(q, k, v, cfg, causal=mixer != "attn_nc")
-        out = out.reshape(*x.shape[:-1], -1) @ p["mixer"]["wo"].to(COMPUTE_DTYPE)
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
+        out, k, v = L.attention(p["mixer"], cfg, h, positions, causal=mixer != "attn_nc", return_kv=True)
+        _fill(cache["k"], k, split["k"])
+        _fill(cache["v"], v, split["v"])
         if mixer == "attn_cross":
             x = x + out
             h2 = L.rmsnorm(x, p["ln_cross"], cfg.norm_eps)
-            _, ck, cv = L._project_qkv(p["cross"], cfg, h2, enc_out)
-            cache["ck"].copy_(ck)
-            cache["cv"].copy_(cv)
-            q2 = L._project_q(p["cross"], cfg, h2)
-            out = L._sdpa(q2, ck, cv, cfg, causal=False)
-            out = out.reshape(*x.shape[:-1], -1) @ p["cross"]["wo"].to(COMPUTE_DTYPE)
+            out, ck, cv = L.attention(p["cross"], cfg, h2, positions, kv=enc_out, return_kv=True)
+            _fill(cache["ck"], ck, split["ck"])
+            _fill(cache["cv"], cv, split["cv"])
     elif mixer == "cross":
-        _, ck, cv = L._project_qkv(p["mixer"], cfg, h, enc_out)
-        cache["ck"].copy_(ck)
-        cache["cv"].copy_(cv)
-        q = L._project_q(p["mixer"], cfg, h)
-        out = L._sdpa(q, ck, cv, cfg, causal=False)
-        out = out.reshape(*x.shape[:-1], -1) @ p["mixer"]["wo"].to(COMPUTE_DTYPE)
+        out, ck, cv = L.attention(p["mixer"], cfg, h, positions, kv=enc_out, return_kv=True)
+        _fill(cache["ck"], ck, split["ck"])
+        _fill(cache["cv"], cv, split["cv"])
     elif mixer == "mamba":
         out, (conv_hist, state) = ssm.mamba_forward(p["mixer"], cfg, h)
-        cache["conv"].copy_(conv_hist)
+        cache["conv"].copy_(P.split_to_model(conv_hist, -1) if split["conv"] else conv_hist)
         cache["state"].copy_(state)
     else:  # pragma: no cover
         raise ValueError(mixer)
     x = x + out
     if ffn != "none":
         h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        out = L.moe(p["ffn"], cfg, h)[0] if ffn == "moe" else L.mlp(p["ffn"], h)
+        out = L.moe(p["ffn"], cfg, h)[0] if ffn == "moe" else L.mlp(p["ffn"], h, cfg.d_ff)
         x = x + out
     return x
 
 
 @L.f32_accumulation()
 def prefill(params, cfg: ModelConfig, batch, cache_len: int):
-    """Run the prompt, return (last-position logits, caches)."""
+    """Run the prompt, return (last-position logits, caches).
+
+    In the sharded serving step (`launch.steps.make_sharded_prefill_step`)
+    on the local shards: the caches are made at this rank's shapes
+    (`plan.caches`), each rep's block leaves are gathered over dp as it
+    starts, and the logits are this rank's vocab columns where the head
+    splits them."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = params["embed"][tokens].to(COMPUTE_DTYPE)
+    plan = _serving_plan()
+    x = _embed(params, tokens, plan)
     positions = _positions(b, s, tokens.device)
     enc_out = _enc_out(params, cfg, batch)
     enc_len = 0 if enc_out is None else enc_out.shape[1]
-    caches = init_cache(cfg, b, cache_len, enc_len, device=x.device)
+    if plan is None:
+        caches = init_cache(cfg, b, cache_len, enc_len, device=x.device)
+    else:
+        caches = _local_cache(cfg, plan, b, cache_len, enc_len, x.device)
+    splits = [_splits(plan, c, i) for i, c in enumerate(caches)]
     for r in range(cfg.reps):
         for i, (mixer, ffn) in enumerate(cfg.pattern()):
-            x = _prefill_block(cfg, mixer, ffn, _rep_slice(params["blocks"][i], r), x, positions,
-                               enc_out, _rep_slice(caches[i], r))
+            x = _prefill_block(cfg, mixer, ffn, _block_params(plan, params["blocks"], i, r), x, positions,
+                               enc_out, _rep_slice(caches[i], r), splits[i])
     x = L.rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = x @ _head(params).to(COMPUTE_DTYPE)
-    return logits[:, 0], caches
+    return _logits(params, cfg, plan, x)[:, 0], caches
 
 
-def _decode_block(cfg, mixer, ffn, p, x, cache, pos):
+def _decode_block(cfg, mixer, ffn, p, x, cache, pos, split=None):
+    split = split or dict.fromkeys(cache, False)
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    b = x.shape[0]
     if mixer in ("attn", "attn_nc", "attn_cross"):
-        out, _, _ = L.attention_decode(p["mixer"], cfg, h, cache["k"], cache["v"], pos)
+        out, _, _ = L.attention_decode(p["mixer"], cfg, h, cache["k"], cache["v"], pos, split["k"])
         if mixer == "attn_cross":
             x = x + out
             h2 = L.rmsnorm(x, p["ln_cross"], cfg.norm_eps)
-            q = L._project_q(p["cross"], cfg, h2)
-            outc = L._sdpa(q, cache["ck"], cache["cv"], cfg, causal=False)
-            out = outc.reshape(b, 1, -1) @ p["cross"]["wo"].to(COMPUTE_DTYPE)
+            out = L.cross_decode(p["cross"], cfg, h2, cache["ck"], cache["cv"], split["ck"])
     elif mixer == "cross":
-        q = L._project_q(p["mixer"], cfg, h)
-        outc = L._sdpa(q, cache["ck"], cache["cv"], cfg, causal=False)
-        out = outc.reshape(b, 1, -1) @ p["mixer"]["wo"].to(COMPUTE_DTYPE)
+        out = L.cross_decode(p["mixer"], cfg, h, cache["ck"], cache["cv"], split["ck"])
     elif mixer == "mamba":
         out, (conv, state) = ssm.mamba_decode(p["mixer"], cfg, h, cache["conv"], cache["state"])
         cache["conv"].copy_(conv)
@@ -386,7 +449,7 @@ def _decode_block(cfg, mixer, ffn, p, x, cache, pos):
     x = x + out
     if ffn != "none":
         h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-        out = L.moe(p["ffn"], cfg, h)[0] if ffn == "moe" else L.mlp(p["ffn"], h)
+        out = L.moe(p["ffn"], cfg, h)[0] if ffn == "moe" else L.mlp(p["ffn"], h, cfg.d_ff)
         x = x + out
     return x
 
@@ -395,15 +458,18 @@ def _decode_block(cfg, mixer, ffn, p, x, cache, pos):
 def decode_step(params, cfg: ModelConfig, token, caches, pos: int):
     """token: (B,) int; pos: int (next position to fill).
 
-    Returns (logits (B, V), caches), the caches updated in place."""
-    x = params["embed"][token][:, None, :].to(COMPUTE_DTYPE)
+    Returns (logits (B, V), caches), the caches updated in place.  In the
+    sharded serving step (`launch.steps.make_sharded_decode_step`) on the
+    local shards and this rank's caches, placed by `plan.caches`."""
+    plan = _serving_plan()
+    x = _embed(params, token[:, None], plan)
+    splits = [_splits(plan, c, i) for i, c in enumerate(caches)]
     for r in range(cfg.reps):
         for i, (mixer, ffn) in enumerate(cfg.pattern()):
-            x = _decode_block(cfg, mixer, ffn, _rep_slice(params["blocks"][i], r), x,
-                              _rep_slice(caches[i], r), pos)
+            x = _decode_block(cfg, mixer, ffn, _block_params(plan, params["blocks"], i, r), x,
+                              _rep_slice(caches[i], r), pos, splits[i])
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ _head(params).to(COMPUTE_DTYPE))[:, 0]
-    return logits, caches
+    return _logits(params, cfg, plan, x)[:, 0], caches
 
 
 # ---------------------------------------------------------------------------

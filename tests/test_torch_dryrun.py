@@ -21,6 +21,7 @@ from repro.launch import dryrun as ref_dryrun
 from repro.launch import roofline as ref_roofline
 from repro_torch.configs.registry import get_config
 from repro_torch.launch import dryrun, perf, report_experiments, roofline
+from repro_torch.tree import leaves
 from torch_dist import SRC, run_child
 
 HLO = """
@@ -149,19 +150,25 @@ with dryrun.fake_world(mesh) as dmesh:
     for arch in ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b", "jamba-1.5-large-398b", "whisper-small"):
         base = dataclasses.replace(get_config(arch).reduced(), name=arch)  # the arch's optimizer policy
         deep = dryrun._depth_variant(base, 3)
-        for shp in (ShapeConfig("t", 64, 8, "train"), ShapeConfig("p", 64, 8, "prefill"),
-                    ShapeConfig("d", 64, 8, "decode")):
+        shapes = [ShapeConfig("t", 64, 8, "train"), ShapeConfig("p", 64, 8, "prefill"),
+                  ShapeConfig("d", 64, 8, "decode")]
+        if arch == "jamba-1.5-large-398b":  # long_500k's batch 1, replicated over dp
+            shapes.append(ShapeConfig("decode_b1", 64, 1, "decode"))
+        for shp in shapes:
             shp = effective_shape(deep, shp)  # whisper's decoder length, as run_cell clamps it
             ri = dryrun.extrapolated_costs(deep, shp, mesh, dmesh)
             full = dryrun.measure_pass(deep, shp, mesh, dmesh)
             cell = dryrun.build_cell(deep, shp, mesh)
             args = dryrun.place_inputs(cell, dmesh)
             local = sum(t.to_local().numel() * t.to_local().element_size() for k in args for t in leaves(args[k]))
-            out[f"{arch}/{shp.kind}"] = dict(
+            with dryrun.CollectiveTally() as tally:
+                dryrun.run_step(deep, shp, cell, args, dmesh)
+            out[f"{arch}/{shp.name if shp.global_batch == 1 else shp.kind}"] = dict(
                 flops=ri["flops_per_device"], full_flops=full["flops"], coll=ri["collective_bytes_per_device"],
                 full_coll=full["coll"]["total_bytes"], counts=ri["collective_counts"],
                 full_counts=full["coll"]["counts"], args=ri["memory"]["argument_bytes"], local=local,
-                memory=ri["memory"], opt=cell.opt_cfg.optimizer)
+                memory=ri["memory"], opt=cell.opt_cfg.optimizer, whole=dryrun._whole_bytes(cell.inputs["params"]),
+                model_all_reduces=sum(op == "all-reduce" and group == 4 for op, _, group in tally.ops))
 # the model axis: a reduced dense and a reduced MoE train cell, per-device
 # flops on 2 x 4 against 2 x 1, and the gathered copies against the whole model
 train = ShapeConfig("t", 64, 8, "train")
@@ -188,6 +195,11 @@ def test_mini_fake_world_pass(tmp_path):
     and collective bytes > 0; the passes at 1 and 2 reps extrapolate to the
     3-rep pass exactly; argument bytes from the local shapes equal the
     placed local shards' bytes; donated state aliases its outputs.  The
+    prefill and decode cells run the sharded serving steps: the gathered
+    copies below the whole model's bytes, and every decode step's
+    partial-softmax all-reduces over `model` (groups of 4); a decode cell
+    of batch 1 (long_500k's), which does not divide over dp and is
+    replicated there, so that MoE routes that one row on every dp rank.  The
     train cells of reduced qwen3-8b and qwen3-moe: per-device flops on
     2 x 4 at most 0.6 of those on 2 x 1 (the model axis splits the work),
     and the gathered copies (`temp_bytes`) below the whole model's bytes."""
@@ -195,7 +207,8 @@ def test_mini_fake_world_pass(tmp_path):
     axis = out.pop("model_axis")
     for arch, r in axis.items():  # the model axis splits the compute; a rep at a time is gathered
         assert r["flops_4"] <= 0.6 * r["flops_1"] and r["temp"] < r["whole"], (arch, r)
-    assert len(out) == 12
+    assert len(out) == 13
+    assert "reduce-scatter" not in out["jamba-1.5-large-398b/decode_b1"]["counts"]  # MoE routes its one row
     for key, r in out.items():
         assert r["flops"] > 0 and r["coll"] > 0, key
         assert (r["flops"], r["coll"], r["counts"]) == (r["full_flops"], r["full_coll"], r["full_counts"]), key
@@ -204,6 +217,10 @@ def test_mini_fake_world_pass(tmp_path):
         assert mem["peak_bytes"] == mem["argument_bytes"] + mem["output_bytes"] - mem["alias_bytes"] + mem["temp_bytes"]
         if key.endswith("train"):
             assert mem["alias_bytes"] == mem["output_bytes"] and "reduce-scatter" in r["counts"], key
+        else:
+            assert mem["temp_bytes"] < r["whole"], key
+        if "decode" in key:
+            assert r["model_all_reduces"] > 0, key
     assert out["kimi-k2-1t-a32b/train"]["opt"] == "adafactor"
 
 
@@ -226,3 +243,25 @@ def test_train_gather_bytes_keep_the_mixers_model_shards(arch):
                                               lambda path: "['ffn']" in path and "encoder" not in path)
     assert now < mixers_whole, (now, mixers_whole)
     assert dryrun.memory_bytes(cfg, shape, mesh)["temp_bytes"] == now
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_serving_memory_keeps_the_model_shards(arch):
+    """The decode_32k cell on the 16 x 16 mesh (meta tensors, no world): the
+    serving steps' temporaries are `memory_bytes`' rule, one rep's block
+    leaves gathered over dp with their model shards kept plus the encoder,
+    embedding and head (`_train_gather_bytes` with remat), no whole cache;
+    so the cell's whole peak is below the whole model's bytes."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import effective_shape
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg, mesh = get_config(arch), make_production_mesh()
+    shape = effective_shape(cfg, SHAPES["decode_32k"])
+    cell = dryrun.build_cell(cfg, shape, mesh)
+    params, shardings = cell.inputs["params"], cell.in_sh["params"]
+    mem = dryrun.memory_bytes(cfg, shape, mesh)
+    rule = dryrun._train_gather_bytes(dataclasses.replace(cfg, remat=True), params, shardings, mesh)
+    assert mem["temp_bytes"] == rule, (mem, rule)
+    caches = sum(t.numel() * t.element_size() for t in leaves(cell.inputs["caches"]))
+    assert mem["peak_bytes"] < dryrun._whole_bytes(params) and mem["argument_bytes"] < caches, mem

@@ -334,9 +334,10 @@ with cs.one_rank_world("cpu"):
     moe = cs.drive_dist_step("cpu", arch, moments, batch=2, seq=32, steps=3, reduced=True, compression=False)
     mixers = [cs.drive_dist_step("cpu", arch, moments, batch=2, seq=32, steps=2, reduced=True, layers=layers,
                                  compression=False) for arch, layers, moments, _ in cs.DIST_MIXERS]
+    serves = [cs.drive_dist_serve("cpu", arch, 2, 16, 4, reduced=True) for arch, *_ in cs.DIST_SERVE]
 with tempfile.TemporaryDirectory() as d:
     sweep = cs.run_dryrun_sweep(d, ("--arch", "qwen3-8b", "--shape", "long_500k"))
-print(json.dumps({"step": rec, "moe": moe, "mixers": mixers, "sweep": sweep}))
+print(json.dumps({"step": rec, "moe": moe, "mixers": mixers, "serves": serves, "sweep": sweep}))
 '''
 
 
@@ -346,8 +347,17 @@ def test_chip_smoke_dist_phase_on_cpu(tmp_path):
     collectives equal the codec, the sharded step 1 equals the unsharded
     one bit for bit (the MoE's aux loss too; and for the other mixers'
     runs, reduced mamba2, whisper and llama-vision), no kernel of the port
-    launches; the sweep's plumbing on a skipped cell."""
+    launches; the serving part at reduced qwen3-4b and mamba2 (prefill of
+    16 tokens, 3 decode steps): both sharded runs' greedy tokens, logits
+    and every cache leaf equal to the unsharded steps'; the sweep's
+    plumbing on a skipped cell."""
     out = json.loads(run_child(tmp_path, DIST_PHASE).strip().splitlines()[-1])
+    assert [r["arch"] for r in out["serves"]] == ["qwen3-4b", "mamba2-780m"]
+    for r in out["serves"]:
+        eq = r["equal_to_unsharded"]
+        assert eq["tokens"] and eq["unequal_logits"] == [] and eq["unequal_cache_leaves"] == [], r
+        assert eq["logits"] == 4 and eq["cache_leaves"] == 2 and eq["sharded_runs"] == 2, r
+        assert r["launches"] == out["step"]["launches"] and r["sharded_decode_ms_per_step"] > 0, r
     rec, moe, sweep = out["step"], out["moe"], out["sweep"]
     assert [r["arch"] for r in out["mixers"]] == ["mamba2-780m", "whisper-small", "llama-3.2-vision-11b"]
     for r in out["mixers"]:
