@@ -15,7 +15,9 @@ slice, shard_map style, calling the collectives below where the reference's
     device's matmuls do (weights exchanged between row and column blocks
     by an all-to-all where a product needs the other split); a whole-head
     view of a split projection by `gather_model_sum`; the SSD's heads split
-    out of replicated activations (`split_to_model`);
+    out of replicated activations (`split_to_model`), and attention's
+    units (a batch row's kv group) the same way where the split cuts a
+    head or a kv group;
   * EP: the MoE buffer's capacity slots reduce-scattered over dp
     (`reduce_scatter_dp`), the experts' outputs gathered back
     (`gather_dp`), each token's contributions summed over `model`;
@@ -33,7 +35,9 @@ through `reduce_from_model` (an all-reduce, its backward the identity), and
 compute only.  `split_to_model` is its mirror: this rank's chunk of a
 replicated tensor for rank-specific compute, the backward an all-gather
 of the ranks' grads of their chunks (each computed whole on its rank), so
-the grad comes back whole and replicated, as one device computes it; and
+the grad comes back whole and replicated, as one device computes it
+(where the ranks' runs do not divide the dim, each is padded to one
+length for the all-gather); and
 `row_parallel(..., whole=True)` takes the replicated rows whole and gives
 their grad back whole (an all-gather) in the same way.  Between a
 `gather_model` and a `split_to_model` the compute is replicated, and
@@ -202,33 +206,52 @@ class _GatherSum(torch.autograd.Function):
         return _rs(g, ctx.dim, ctx.group), None, None
 
 
+def _run(total: int, per: int, index: int) -> tuple:
+    """(start, length) of rank `index`'s run of `per` of `total` along a
+    dim: shorter on the last ranks where `per` does not divide `total`,
+    empty past them."""
+    lo = min(index * per, total)
+    return lo, min(per, total - lo)
+
+
+def _pad(x, dim, n):
+    """`x` padded with zeros along `dim` to `n`."""
+    short = n - x.shape[dim]
+    if not short:
+        return x
+    return torch.cat([x, x.new_zeros((*x.shape[:dim], short, *x.shape[dim + 1:]))], dim)
+
+
 class _GatherSlice(torch.autograd.Function):
-    """All-gather along `dim`; backward: this rank's chunk of the grad (the
-    compute after it is replicated, so its grad is whole on every rank)."""
+    """The ranks' runs along `dim` (`_run`), each padded to `per`,
+    all-gathered, the padding dropped (`total` long); backward: this rank's
+    run of the grad (the compute after it is replicated, so its grad is
+    whole on every rank)."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, parts, index):
-        ctx.dim, ctx.parts, ctx.index = dim, parts, index
-        return _ag(x, dim, group)
+    def forward(ctx, x, dim, group, per, index, total):
+        ctx.dim, ctx.run = dim, _run(total, per, index)
+        return _ag(_pad(x, dim, per), dim, group).narrow(dim, 0, total)
 
     @staticmethod
     def backward(ctx, g):
-        return torch.chunk(g, ctx.parts, ctx.dim)[ctx.index].contiguous(), None, None, None, None
+        return g.narrow(ctx.dim, *ctx.run).contiguous(), None, None, None, None, None
 
 
 class _SplitGather(torch.autograd.Function):
-    """This rank's chunk along `dim`; backward: all-gather of the ranks'
-    grads (each rank's chunk's grad is whole there)."""
+    """This rank's run of `per` along `dim` (`_run`); backward: the ranks'
+    grads of their runs (each whole on its rank), each padded to `per`,
+    all-gathered, the padding dropped."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, parts, index):
-        ctx.dim, ctx.group = dim, group
-        n = x.shape[dim] // parts
-        return x.narrow(dim, index * n, n).contiguous()
+    def forward(ctx, x, dim, group, per, index):
+        ctx.dim, ctx.group, ctx.per, ctx.total = dim, group, per, x.shape[dim]
+        return x.narrow(dim, *_run(x.shape[dim], per, index)).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return _ag(g, ctx.dim, ctx.group), None, None, None, None
+        g = _ag(_pad(g, ctx.dim, ctx.per), ctx.dim, ctx.group).narrow(ctx.dim, 0, ctx.total)
+        return g, None, None, None, None
 
 
 class _ScatterSum(torch.autograd.Function):
@@ -428,12 +451,18 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     return x if plan.model_dim is None else _SumForward.apply(x, plan.group(plan.model_dim))
 
 
-def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """`x`'s chunks along `dim` gathered over `model`, for replicated compute."""
+def gather_model(x: torch.Tensor, dim: int, total: int | None = None) -> torch.Tensor:
+    """`x`, this rank's run along `dim`, and the other ranks' gathered over
+    `model`, for replicated compute: `total` long (`x`'s length times
+    `model` by default; `split_to_model`'s runs where they do not divide
+    it).  The backward takes this rank's run of the whole grad."""
     plan = current()
     if plan.model_dim is None:
         return x
-    return _GatherSlice.apply(x, dim % x.dim(), plan.group(plan.model_dim), plan.model_size, plan.model_rank)
+    dim %= x.dim()
+    total = x.shape[dim] * plan.model_size if total is None else total
+    return _GatherSlice.apply(x, dim, plan.group(plan.model_dim), -(-total // plan.model_size), plan.model_rank,
+                              total)
 
 
 def gather_model_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -444,12 +473,17 @@ def gather_model_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def split_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """This rank's chunk along `dim` of `x`, replicated over `model`, for
-    rank-specific compute: the backward all-gathers the ranks' grads."""
+    """This rank's run along `dim` of `x`, replicated over `model`, for
+    rank-specific compute: the n entries dealt out in runs of
+    ceil(n / model) in rank order, the last ranks' shorter or empty where
+    that does not divide n.  The backward all-gathers the ranks' grads of
+    their runs (padded to one length), so the grad comes back whole."""
     plan = current()
     if plan.model_dim is None:
         return x
-    return _SplitGather.apply(x, dim % x.dim(), plan.group(plan.model_dim), plan.model_size, plan.model_rank)
+    dim %= x.dim()
+    return _SplitGather.apply(x, dim, plan.group(plan.model_dim), -(-x.shape[dim] // plan.model_size),
+                              plan.model_rank)
 
 
 def all_reduce_model(x: torch.Tensor, op: str = "sum") -> torch.Tensor:

@@ -47,22 +47,25 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import OptConfig
 from repro_torch.tree import leaves
 
-#: (name, arch, optimizer, overrides of the full config or None for the
-#: reduced one, batch per dp rank, seq, compare every leaf): the reduced
-#: dense, MoE, SSD, hybrid, encoder-decoder and cross-attention cases of
-#: the CPU tests, and qwen3-moe-30b-a3b at full width and 2 layers (its
-#: metrics compared, not its 1.55 x 10^9-param leaves, whose host copies
-#: would take ~37 GB a rank).
+#: (name, arch, optimizer, full width, overrides of that config (the full
+#: one or the reduced one), batch per dp rank, seq, compare every leaf):
+#: the reduced dense, MoE, SSD, hybrid, encoder-decoder and
+#: cross-attention cases of the CPU tests; reduced qwen3-8b with 3 q heads
+#: of one kv group, which a model axis of 2 or 4 cuts (each batch row's kv
+#: group attended on one rank); and qwen3-moe-30b-a3b at full width and 2
+#: layers (its metrics compared, not its 1.55 x 10^9-param leaves, whose
+#: host copies would take ~37 GB a rank).
 CASES = (
-    ("qwen3-8b reduced", "qwen3-8b", "adamw", None, 4, 32, True),
-    ("qwen3-8b reduced", "qwen3-8b", "adafactor", None, 4, 32, True),
-    ("qwen3-moe reduced", "qwen3-moe-30b-a3b", "adamw", None, 4, 32, True),
-    ("qwen3-moe reduced", "qwen3-moe-30b-a3b", "adafactor", None, 4, 32, True),
-    ("mamba2 reduced", "mamba2-780m", "adamw", None, 4, 32, True),
-    ("jamba reduced", "jamba-1.5-large-398b", "adamw", None, 4, 32, True),
-    ("whisper reduced", "whisper-small", "adamw", None, 4, 32, True),
-    ("llama-vision reduced", "llama-3.2-vision-11b", "adamw", None, 4, 32, True),
-    ("qwen3-moe full width, 2 layers", "qwen3-moe-30b-a3b", "adamw", {"num_layers": 2}, 4, 512, False),
+    ("qwen3-8b reduced", "qwen3-8b", "adamw", False, {}, 4, 32, True),
+    ("qwen3-8b reduced", "qwen3-8b", "adafactor", False, {}, 4, 32, True),
+    ("qwen3-8b reduced, cut heads", "qwen3-8b", "adamw", False, {"num_heads": 3, "num_kv_heads": 1}, 4, 32, True),
+    ("qwen3-moe reduced", "qwen3-moe-30b-a3b", "adamw", False, {}, 4, 32, True),
+    ("qwen3-moe reduced", "qwen3-moe-30b-a3b", "adafactor", False, {}, 4, 32, True),
+    ("mamba2 reduced", "mamba2-780m", "adamw", False, {}, 4, 32, True),
+    ("jamba reduced", "jamba-1.5-large-398b", "adamw", False, {}, 4, 32, True),
+    ("whisper reduced", "whisper-small", "adamw", False, {}, 4, 32, True),
+    ("llama-vision reduced", "llama-3.2-vision-11b", "adamw", False, {}, 4, 32, True),
+    ("qwen3-moe full width, 2 layers", "qwen3-moe-30b-a3b", "adamw", True, {"num_layers": 2}, 4, 512, False),
 )
 
 
@@ -103,9 +106,9 @@ def _update_err(a, b, start) -> float:
 
 
 def run_case(case, mesh, device, steps: int, seed: int = 0) -> dict:
-    name, arch, optimizer, over, batch, seq, by_leaf = case
+    name, arch, optimizer, full, over, batch, seq, by_leaf = case
     cfg = get_config(arch)
-    cfg = cfg.reduced() if over is None else dataclasses.replace(cfg, **over)
+    cfg = dataclasses.replace(cfg, **over) if full else cfg.reduced(**over)
     opt = OptConfig(total_steps=steps + 2, warmup_steps=1, optimizer=optimizer)
     rank, hosts = S.data_parallel_rank(mesh)
 
@@ -221,7 +224,7 @@ def _rank(rank, world, args, store):
     try:
         mesh = make_host_mesh(data=args.data, model=args.model, device=device.type)
         records = []
-        train = CASES if cuda else [c for c in CASES if c[3] is None]  # full width on cards only
+        train = CASES if cuda else [c for c in CASES if not c[3]]  # full width on cards only
         runs = [(run_case, c, args.steps) for c in train] + [(run_serve_case, c) for c in SERVE_CASES]
         for fn, case, *more in runs:
             records.append(fn(case, mesh, device, *more))

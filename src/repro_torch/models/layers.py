@@ -171,28 +171,27 @@ def _sdpa(q, k, v, cfg: ModelConfig, causal: bool, q_offset=0):
     return out.reshape(b, sq, h, hd)
 
 
-def _heads(y, split: bool, n: int, hd: int, lo: int, hi: int):
-    """Heads [lo, hi) of a projection `y` of `n` heads, for this rank's own
-    compute: gathered over `model` where its columns are split there."""
-    y = P.gather_model_sum(y, -1) if split else P.copy_to_model(y)
+def _heads(y, n: int, hd: int, lo: int, hi: int):
+    """Heads [lo, hi) of a projection `y` of `n` heads whose columns are
+    split over `model`, for this rank's own compute: gathered over `model`,
+    the backward summing the ranks' grads (zero outside their heads)."""
+    y = P.gather_model_sum(y, -1)
     return y.reshape(*y.shape[:-1], n, hd)[..., lo:hi, :]
 
 
 def _attention_tp(p, cfg: ModelConfig, x, positions, causal: bool, kv=None, return_kv: bool = False):
     """Self (kv None) or cross attention with `wq`'s columns (and `wo`'s
-    rows) split over `model`: this rank's column range of the heads, whole
-    heads for rope and qk-norm (q gathered where the split cuts a head), k
-    / v gathered whole and each rank taking the kv heads its q heads use;
-    `wo` row-parallel.  Cross-attention's k / v come from `kv`, replicated
-    over `model` like `x`, through its own column-parallel projections; no
-    rope, no causal mask.  With `return_kv` (prefill, no grad) k is normed
-    and roped over all kv heads, and (out, k, v) of all of them come back
-    for the cache."""
+    rows) split over `model`, the projections column-parallel.  Where each
+    rank holds whole kv groups (`num_kv_heads` divides over `model`), each
+    rank attends with its own q heads and the kv heads they use (k / v
+    gathered whole, each rank taking its kv heads), `wo` row-parallel;
+    otherwise `_attend_units`.  Cross-attention's k / v come from `kv`,
+    replicated over `model` like `x`, through its own column-parallel
+    projections; no rope, no causal mask.  With `return_kv` (prefill, no
+    grad) k is normed and roped over all kv heads, and (out, k, v) of all
+    of them come back for the cache."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    rep = h // kvh
-    width = h * hd // P.current().model_size
-    c0 = P.current().model_rank * width
-    lo, hi = c0 // hd, -(-(c0 + width) // hd)  # the q heads this rank's columns touch
+    m = P.current().model_size
     kv_split = P.model_split(p["wk"].shape[-1], kvh * hd)
     xkv = x if kv is None else kv
     # role tokens_act: x (and kv) replicated over model, into the column-parallel projections
@@ -204,14 +203,14 @@ def _attention_tp(p, cfg: ModelConfig, x, positions, causal: bool, kv=None, retu
         # one projection a call: `kv` takes each one's grad as on one device, where it sums the
         # grads of every cross layer's wk and wv in the order they arrive
         kv_proj = tuple(P.column_parallel(kv, p[w].to(COMPUTE_DTYPE))[0] for w in ("wk", "wv")) if kv_split else ()
-    if c0 % hd or width % hd:
-        q = _heads(q, True, h, hd, lo, hi)
-    else:
-        q = q.reshape(*x.shape[:-1], hi - lo, hd)
-    klo, khi = lo // rep, (hi - 1) // rep + 1
+    if kvh % m:
+        return _attend_units(p, cfg, q, kv_proj, x, xkv, positions, causal and kv is None, kv is None, return_kv)
+    width = h // m  # this rank's q heads, whole kv groups (and kv_split)
+    klo = P.current().model_rank * width // (h // kvh)
+    khi = klo + kvh // m
+    q = q.reshape(*x.shape[:-1], width, hd)
     if return_kv:  # all kv heads, gathered whole; this rank's taken after their norm and rope
-        ys = kv_proj if kv_split else tuple(xkv @ p[w].to(COMPUTE_DTYPE) for w in ("wk", "wv"))
-        k_all, v_all = ((P.gather_model(y, -1) if kv_split else y).reshape(*xkv.shape[:-1], kvh, hd) for y in ys)
+        k_all, v_all = (P.gather_model(y, -1).reshape(*xkv.shape[:-1], kvh, hd) for y in kv_proj)
         if cfg.qk_norm:
             q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
             k_all = rmsnorm(k_all, p["k_norm"], cfg.norm_eps)
@@ -220,23 +219,51 @@ def _attention_tp(p, cfg: ModelConfig, x, positions, causal: bool, kv=None, retu
             k_all = rope(k_all, positions, cfg.rope_theta)
         k, v = k_all[..., klo:khi, :], v_all[..., klo:khi, :]
     else:
-        if kv_split:
-            k, v = (_heads(y, True, kvh, hd, klo, khi) for y in kv_proj)
-        else:
-            k, v = (_heads(xkv @ p[w].to(COMPUTE_DTYPE), False, kvh, hd, klo, khi) for w in ("wk", "wv"))
+        k, v = (_heads(y, kvh, hd, klo, khi) for y in kv_proj)
         if cfg.qk_norm:
             q = rmsnorm(q, P.copy_to_model(p["q_norm"]), cfg.norm_eps)
             k = rmsnorm(k, P.copy_to_model(p["k_norm"]), cfg.norm_eps)
         if kv is None:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
-    if lo % rep or (hi - lo) % rep:  # q heads not in whole kv groups: one kv head per q head
-        idx = torch.arange(lo, hi, device=x.device) // rep - klo
-        k, v = k[..., idx, :], v[..., idx, :]
-    out = _sdpa(q, k, v, cfg, causal=causal and kv is None).reshape(*x.shape[:-1], (hi - lo) * hd)
-    out = out[..., c0 - lo * hd:c0 - lo * hd + width]
+    out = _sdpa(q, k, v, cfg, causal=causal and kv is None).reshape(*x.shape[:-1], width * hd)
     out = P.row_parallel(out, p["wo"].to(COMPUTE_DTYPE))
     return (out, k_all, v_all) if return_kv else out
+
+
+def _attend_units(p, cfg: ModelConfig, q, kv_proj, x, xkv, positions, causal: bool, self_attn: bool,
+                  return_kv: bool):
+    """`_attention_tp` where the `model` split cuts a q head or spreads a kv
+    group's q heads over ranks, every element of the output and of every
+    grad computed whole on one rank, as on one device.  q (and k / v where
+    their columns split; else their projections replicated) gathered whole
+    (`gather_model`: the backward takes the rank's chunk of a whole grad);
+    qk-norm and rope replicated over all heads.  The unit of attention is
+    one batch row's kv group (its k, its v and its `rep` q heads): the
+    B x KV units are dealt out over `model` in runs (`split_to_model`,
+    padded where they do not divide, so a rank may hold none), each
+    attended on its rank, and their outputs gathered whole (`gather_model`)
+    into the row-parallel `wo`, which takes them whole.  Nothing is summed
+    over `model` in the backward."""
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    rep = h // kvh
+    q = P.gather_model(q, -1).reshape(*x.shape[:-1], h, hd)
+    ys = (P.gather_model(y, -1) for y in kv_proj) if kv_proj else (xkv @ p[w].to(COMPUTE_DTYPE) for w in ("wk", "wv"))
+    k, v = (y.reshape(*xkv.shape[:-1], kvh, hd) for y in ys)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if self_attn:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    b, sq, sk = x.shape[0], x.shape[1], xkv.shape[1]
+    units = b * kvh  # (row, group), row-major
+    qu = P.split_to_model(q.reshape(b, sq, kvh, rep, hd).transpose(1, 2).reshape(units, sq, rep, hd), 0)
+    ku, vu = (P.split_to_model(t.transpose(1, 2).reshape(units, sk, 1, hd), 0) for t in (k, v))
+    out = P.gather_model(_sdpa(qu, ku, vu, cfg, causal=causal), 0, units)
+    out = out.reshape(b, kvh, sq, rep * hd).transpose(1, 2).reshape(b, sq, h * hd)
+    out = P.row_parallel(out, p["wo"].to(COMPUTE_DTYPE), whole=True)
+    return (out, k, v) if return_kv else out
 
 
 def attention(p, cfg: ModelConfig, x, positions, causal=True, kv=None, return_kv: bool = False):

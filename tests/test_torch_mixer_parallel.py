@@ -48,21 +48,6 @@ def ssd_summed_gather():
 '''
 
 MESH_1X2 = PLANTS + '''
-def unequal_grads(cfg, mesh, p0, local, whole):
-    """The leaves whose grad shard from the sharded forward and backward
-    differs from the single-device grad's chunk."""
-    from repro_torch.distributed import parallel as P, sharding as shd
-    from repro_torch.launch import steps as S
-    from repro_torch.tree import keystr, leaves, leaves_with_path, tree_map, unflatten
-
-    one = S.loss_and_grads(cfg, tree_map(torch.clone, p0), whole)[2]
-    dp = shd.distribute_tree(tree_map(torch.clone, p0), shd.param_shardings(mesh, p0))
-    with P.sharded(mesh, unflatten(dp, [tuple(x.placements) for x in leaves(dp)])):
-        split = S.loss_and_grads(cfg, unflatten(dp, [x.to_local() for x in leaves(dp)]), local)[2]
-    return [keystr(path) for (path, g), h, d in zip(leaves_with_path(one), leaves(split), leaves(dp))
-            if not torch.equal(shd.local_chunk(g, mesh, d.placements), h)]
-
-
 def body(rank, world, tmp):
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.distributed import sharding as shd
@@ -72,7 +57,7 @@ def body(rank, world, tmp):
     out = {}
     for arch in ARCHS:
         cfg, opt, mesh, p0, s0, local, whole = setup(arch, "adamw", 1, 2, tmp)
-        unequal = unequal_grads(cfg, mesh, p0, local, whole)
+        unequal = unequal_grads(cfg, opt, mesh, p0, s0, local, whole)
         with FlopCounterMode(display=False) as one:
             S.make_train_step(cfg, opt)(*tree_map(torch.clone, (p0, s0)), whole, 1)
         dp, ds = shd.distribute_tree(tree_map(torch.clone, (p0, s0)),

@@ -12,6 +12,7 @@ import os
 
 import jax.numpy as jnp
 import pytest
+import torch
 
 from repro.ckpt.checkpoint import CheckpointManager as RefCheckpointManager
 from repro.launch import steps as ref_steps
@@ -27,7 +28,7 @@ import contextlib
 import numpy as np
 
 
-def setup(arch, optimizer, data, model, tmp, seq=32, **over):
+def setup(arch, optimizer, data, model, tmp, seq=32, batch=4, weights="weights", **over):
     from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticStream
@@ -39,14 +40,14 @@ def setup(arch, optimizer, data, model, tmp, seq=32, **over):
     cfg = get_config(arch).reduced(**over)
     opt = OptConfig(total_steps=10, warmup_steps=1, optimizer=optimizer)
     mesh = make_host_mesh(data=data, model=model, device="cpu")
-    weights = os.path.join(tmp, "weights")
+    weights = os.path.join(tmp, weights)
     if os.path.exists(weights):
         p0 = CheckpointManager(weights).restore(0, S.param_specs(cfg), "cpu")[0]
     else:
         p0 = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     s0 = S.make_opt_init(cfg, opt)(p0)
     host, hosts = S.data_parallel_rank(mesh)
-    stream = lambda h: SyntheticStream(cfg, 4, seq, host_id=h, num_hosts=hosts).batch_at(1)
+    stream = lambda h: SyntheticStream(cfg, batch, seq, host_id=h, num_hosts=hosts).batch_at(1)
     local = {k: torch.from_numpy(v) for k, v in stream(host).items()}
     parts = [stream(h) for h in range(hosts)]
     whole = {k: torch.from_numpy(np.concatenate([p[k] for p in parts])) for k in parts[0]}
@@ -90,6 +91,49 @@ def run(cfg, opt, mesh, p0, s0, local, whole, controls=()):
         with plant():
             rec["controls"][name] = errs(*sharded_step()[:2])
     return rec
+
+
+def sharded_grads(cfg, mesh, p0, local):
+    """(loss, grads, params as DTensors) of the sharded forward and backward
+    on this rank's rows: the loss this rank's own, each grad this rank's
+    shard (summed over the dp ranks where the FSDP gather shards its leaf
+    over dp, this rank's own term elsewhere: the step sums those after)."""
+    from repro_torch.distributed import parallel as P, sharding as shd
+    from repro_torch.launch import steps as S
+    from repro_torch.tree import leaves, tree_map, unflatten
+
+    dp = shd.distribute_tree(tree_map(torch.clone, p0), shd.param_shardings(mesh, p0))
+    with P.sharded(mesh, unflatten(dp, [tuple(x.placements) for x in leaves(dp)])):
+        loss, _, grads = S.loss_and_grads(cfg, unflatten(dp, [x.to_local() for x in leaves(dp)]), local)
+    return loss, leaves(grads), leaves(dp)
+
+
+def unequal_grads(cfg, opt, mesh, p0, s0, local, whole):
+    """The leaves whose grad shard from the sharded forward and backward
+    differs from one device's (and "loss" where the losses differ): one
+    device's loss and grads on each dp rank's rows (`whole` is theirs in dp
+    rank order), its grads summed over the dp ranks where the leaf is
+    sharded over dp (two terms sum alike in either order) and this rank's
+    own term elsewhere, as `sharded_grads` has them; this rank's chunk.
+    Takes `setup`'s tuple."""
+    import functools
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as S
+    from repro_torch.tree import keystr, leaves, leaves_with_path, tree_map
+
+    host, hosts = S.data_parallel_rank(mesh)
+    rows = [{k: v.chunk(hosts)[h] for k, v in whole.items()} for h in range(hosts)]
+    one = [S.loss_and_grads(cfg, tree_map(torch.clone, p0), r) for r in rows]
+    loss, split, dp = sharded_grads(cfg, mesh, p0, local)
+    dp_dims = [i for i, a in enumerate(mesh.mesh_dim_names) if a in shd.dp_axes(mesh)]
+    out = [] if torch.equal(loss, one[host][0]) else ["loss"]
+    for i, ((path, _), h, d) in enumerate(zip(leaves_with_path(one[0][2]), split, dp)):
+        terms = [leaves(o[2])[i] for o in one]
+        fsdp = any(d.placements[j].is_shard() for j in dp_dims)
+        g = functools.reduce(torch.add, terms) if fsdp else terms[host]
+        if not torch.equal(shd.local_chunk(g, mesh, d.placements), h):
+            out.append(keystr(path))
+    return out
 
 
 @contextlib.contextmanager
@@ -295,7 +339,8 @@ def body(rank, world, tmp):
                 grads.append(torch.autograd.grad(loss, trainable))
     out["remat_threaded_equal"] = all(torch.equal(a, b) for a, b in zip(*grads))
     # heads the split cuts (1.5 q heads and half a kv head a rank), and a tied head
-    out["cut_heads"] = run(*setup("qwen3-8b", "adafactor", 1, 2, tmp, num_heads=3, num_kv_heads=1))
+    case = setup("qwen3-8b", "adamw", 1, 2, tmp, num_heads=3, num_kv_heads=1)
+    out["cut_heads"] = dict(run(*case), unequal_grads=unequal_grads(*case))
     out["tied"] = run(*setup("qwen3-8b", "adamw", 1, 2, tmp, tie_embeddings=True))
     return out
 '''
@@ -308,12 +353,12 @@ def test_model_axis_splits_the_work(tmp_path):
     loss bit for bit (every output element of a split matmul is computed
     whole on one rank): also where the head is the tied embedding
     (redistributed so that the vocab is over model) and where the split cuts
-    heads (3 q heads of 32 and 1 kv head over 2 ranks).  There both ranks
-    use the one kv head and the cut q head, so their grads are sums of the
-    ranks' bf16 parts, rounded otherwise than on one device: that case is
-    held with Adafactor (AdamW's first step is about lr x sign(g), which
-    magnifies any rounding of a grad near 0) and without the grad-norm
-    bound."""
+    heads (3 q heads of 32 and 1 kv head over 2 ranks).  There the heads
+    are gathered whole and each batch row's kv group attended on one rank
+    (`layers._attend_units`), so nothing is summed over model: that case
+    is held with AdamW (whose first step, about lr x sign(g), magnifies any
+    rounding of a grad near 0) and the grad-norm bound, and every leaf's
+    grad shard equals one device's bit for bit."""
     out = run_child(tmp_path, MESH_1X2, world=2)
     for r in out:
         for arch in ("qwen3-8b", "qwen3-moe-30b-a3b"):
@@ -321,8 +366,128 @@ def test_model_axis_splits_the_work(tmp_path):
             check_step(r[arch + "/step"])
         assert r["remat_threaded_equal"]
         check_step(r["tied"])
-        check_step(r["cut_heads"], grad_norm=False)
+        check_step(r["cut_heads"])
+        assert not r["cut_heads"]["unequal_grads"], r["cut_heads"]["unequal_grads"]
         for case in (r["qwen3-8b/step"], r["qwen3-moe-30b-a3b/step"], r["tied"], r["cut_heads"]):
             assert case["metrics"]["loss"] == case["single"]["loss"], case
     assert out[0]["qwen3-8b"] == out[1]["qwen3-8b"]
 
+
+# ---------------------------------------------------------------------------
+# (e) heads and kv groups the split cuts: exact
+# ---------------------------------------------------------------------------
+
+#: (name, arch, overrides, batch) of each (data, model) mesh: a kv group
+#: spread over two ranks with no cut column (4 q heads of 1 kv group, 2 a
+#: rank); whisper's encoder, self- and cross-attention with 3 heads cut over
+#: 2 ranks; on 1 x 4 reduced qwen3-8b (1 q head a rank, its kv group over 2
+#: ranks) and 3 q heads of one kv group at batch 3 (3 units for 4 ranks:
+#: rank 3 attends to none, the gathers pad); on 2 x 2 3 q heads of one kv
+#: group, FSDP over data.
+SPLIT_CASES = {
+    (1, 2): (("kv_group", "qwen3-8b", {"num_heads": 4, "num_kv_heads": 1}, 4),
+             ("whisper_cut", "whisper-small", {"num_heads": 3, "num_kv_heads": 3}, 4)),
+    (1, 4): (("qwen3-8b", "qwen3-8b", {}, 4),
+             ("idle_rank", "qwen3-8b", {"num_heads": 3, "num_kv_heads": 1}, 3)),
+    (2, 2): (("cut_heads", "qwen3-8b", {"num_heads": 3, "num_kv_heads": 1}, 4),),
+}
+
+SPLIT_GROUPS = COMMON + '''
+def body(rank, world, tmp):
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import parallel as P
+    from repro_torch.models import layers as L
+
+    out, units = {}, []
+    attend = L._sdpa
+
+    def counted(q, *args, **kw):  # the units each rank attends in the sharded step
+        if P.current() is not None:
+            units.append(q.shape[0])
+        return attend(q, *args, **kw)
+
+    for name, arch, over, batch in CASES:
+        case = setup(arch, "adamw", DATA, MODEL, tmp, batch=batch, **over)
+        units.clear()
+        with patched(L, "_sdpa", counted):
+            rec = run(*case)
+        out[name] = dict(rec, units=list(units), unequal_grads=unequal_grads(*case))
+    if REF:  # the reference's weights: the sharded grads assembled whole for the pytest process
+        cfg, opt, mesh, p0, s0, local, whole = setup(*REF, "adamw", DATA, MODEL, tmp, batch=REF_BATCH,
+                                                     weights="ref_weights", **REF_OVER)
+        loss, grads, dp = sharded_grads(cfg, mesh, p0, local)
+        full = [DTensor.from_local(g, mesh, d.placements, run_check=False).full_tensor() for g, d in zip(grads, dp)]
+        if rank == 0:
+            np.savez(os.path.join(tmp, "port_grads.npz"), *[g.float().numpy() for g in full])
+        out["ref_loss"] = float(loss)
+    return out
+'''
+
+#: The case held against the JAX reference (on the 1 x 4 mesh): 3 q heads
+#: of one kv group at batch 3, one rank idle.
+REF_CASE = ("qwen3-8b", {"num_heads": 3, "num_kv_heads": 1}, 3)
+
+
+@pytest.fixture(scope="module")
+def ref_split_weights(tmp_path_factory):
+    """`REF_CASE`'s reference weights (seed 0) in the shared checkpoint
+    format, and the reference's loss and grads (`jax.value_and_grad` of its
+    `loss_fn`, one device) on its batch."""
+    import jax
+    from repro.configs.registry import get_config as ref_get_config
+    from repro.data.pipeline import SyntheticStream as RefStream
+    from repro.models import transformer as RT
+
+    arch, over, batch = REF_CASE
+    cfg = ref_get_config(arch).reduced(**over)
+    params = RT.init_params(cfg, jax.random.PRNGKey(0))
+    d = tmp_path_factory.mktemp("ref_split_weights")
+    RefCheckpointManager(str(d)).save(0, params)
+    inputs = {k: jnp.asarray(v) for k, v in RefStream(cfg, batch, 32).batch_at(1).items()}
+    (loss, _), grads = jax.value_and_grad(RT.loss_fn, has_aux=True)(params, cfg, inputs)
+    return str(d), float(loss), jax.tree_util.tree_flatten_with_path(grads)[0]
+
+
+@pytest.mark.parametrize("data,model", list(SPLIT_CASES), ids=[f"{d}x{m}" for d, m in SPLIT_CASES])
+def test_split_heads_and_kv_groups_are_exact(tmp_path, request, data, model):
+    """Where the model split cuts a q head or spreads a kv group over ranks,
+    the step equals the single-device step (`check_step`, AdamW, grad-norm
+    bound included), its loss bit for bit on 1 x m, and every leaf's grad
+    shard bit for bit (`unequal_grads`: on 2 x 2 one device's grads on each
+    dp rank's rows, summed over dp as the FSDP gather sums them, and each
+    rank's loss one device's on its rows).  Each rank attends its run of
+    the batch rows' kv groups, ceil(units / m), the last ranks fewer
+    (`SPLIT_CASES`).  On 1 x 4 the case with an idle rank, on the
+    reference's weights, has its loss within `TOL_LOSS` of the JAX
+    reference's and each grad leaf within `TOL_GRAD`."""
+    import jax
+    import numpy as np
+    from test_torch_grads import TOL_GRAD, grad_tol, rel_err
+
+    cases = SPLIT_CASES[(data, model)]
+    ref = (data, model) == (1, 4)
+    code = (f"CASES = {cases!r}\nDATA, MODEL = {data}, {model}\n"
+            f"REF, REF_OVER, REF_BATCH = {REF_CASE[:1] if ref else ()!r}, {REF_CASE[1]!r}, {REF_CASE[2]}\n")
+    if ref:
+        weights, ref_loss, ref_grads = request.getfixturevalue("ref_split_weights")
+        os.symlink(weights, tmp_path / "ref_weights")
+    out = run_child(tmp_path, code + SPLIT_GROUPS, world=data * model)
+    for rank, r in enumerate(out):
+        for name, arch, over, batch in cases:
+            case = r[name]
+            check_step(case)
+            assert not case["unequal_grads"], (name, case["unequal_grads"])
+            if data == 1:
+                assert case["metrics"]["loss"] == case["single"]["loss"], (name, case)
+            units = batch // data * over.get("num_kv_heads", 2)
+            per = -(-units // model)
+            mine = min(per, max(units - (rank % model) * per, 0))
+            assert case["units"] and set(case["units"]) == {mine}, (name, rank, case["units"], mine)
+    if ref:
+        assert out[-1]["idle_rank"]["units"] == [0] * len(out[-1]["idle_rank"]["units"])
+        assert abs(out[0]["ref_loss"] - ref_loss) <= TOL_LOSS * ref_loss, (out[0]["ref_loss"], ref_loss)
+        got = np.load(tmp_path / "port_grads.npz")
+        assert len(got.files) == len(ref_grads)
+        for i, (path, g) in enumerate(ref_grads):
+            key = jax.tree_util.keystr(path)
+            assert rel_err(g, torch.from_numpy(got[f"arr_{i}"])) <= grad_tol(key, TOL_GRAD), key

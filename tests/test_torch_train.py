@@ -32,7 +32,7 @@ from repro_torch.models import transformer as PT
 from repro_torch.models.convert import params_from_reference
 from repro_torch.optim import OptConfig
 from repro_torch.tree import leaves
-from test_torch_grads import TOL_GRAD, grad_tol, one_thread, rel_err  # noqa: F401
+from test_torch_grads import TOL_GRAD, TOL_LOSS, grad_tol, one_thread, rel_err  # noqa: F401
 
 # One step from zero moments at step 1 moves each weight by lr x 0.735 x
 # sign(grad) (+ decay): where the two packages' grads differ in sign (tiny
@@ -68,6 +68,39 @@ def test_train_step_matches_reference(arch, moments):
             key = jax.tree_util.keystr(path)
             assert str(a.dtype) == moments and b.dtype == getattr(torch, moments)
             assert rel_err(a, b) <= scale * grad_tol(key, TOL_GRAD), (name, key)
+
+
+#: Steps of the train trajectory held against the reference, on
+#: `chip_smoke.py`'s schedule (warmup_steps=1, total_steps=steps + 1).
+TRAJECTORY_STEPS = 4
+
+
+def test_train_trajectory_matches_reference():
+    """Steps 1..4 of reduced qwen3-4b in both packages from the same weights
+    (`params_from_reference`) on the same `SyntheticStream` batches (4 x
+    32), with `chip_smoke.py`'s schedule and its bf16 AdamW moments for
+    qwen3-4b, each package on its own params and state: every step's loss
+    within `TOL_LOSS` and its grad norm within `TOL_GRAD_NORM` of the
+    reference's."""
+    moments = "bfloat16"
+    ref_cfg, cfg = ref_get_config("qwen3-4b").reduced(), get_config("qwen3-4b").reduced()
+    ref_opt = RefOptConfig(moment_dtype=moments, warmup_steps=1, total_steps=TRAJECTORY_STEPS + 1)
+    opt = OptConfig(moment_dtype=moments, warmup_steps=1, total_steps=TRAJECTORY_STEPS + 1)
+    jp = RT.init_params(ref_cfg, jax.random.PRNGKey(0))
+    js = ref_steps.make_opt_init(ref_cfg, ref_opt)(jp)
+    tp, ts = (params_from_reference(jax.tree.map(np.asarray, t), device="cpu") for t in (jp, js))
+    ref_step, port_step = ref_steps.make_train_step(ref_cfg, ref_opt), steps.make_train_step(cfg, opt)
+    stream = SyntheticStream(cfg, 4, 32, seed=0)
+    rows = []
+    for step in range(1, TRAJECTORY_STEPS + 1):
+        batch = stream.batch_at(step)
+        jp, js, jm = ref_step(jp, js, {k: jnp.asarray(v) for k, v in batch.items()}, jnp.int32(step))
+        tp, ts, tm = port_step(tp, ts, to_device(batch, "cpu"), step)
+        rows.append({k: (float(jm[k]), float(tm[k])) for k in ("loss", "grad_norm", "lr")})
+    for row in rows:
+        assert row["lr"][0] == row["lr"][1], rows
+        (jl, tl), (jg, tg) = row["loss"], row["grad_norm"]
+        assert abs(tl - jl) <= TOL_LOSS * jl and abs(tg - jg) <= TOL_GRAD_NORM * jg, rows
 
 
 def _step_moves_params(cfg, batch):
