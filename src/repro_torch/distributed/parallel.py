@@ -486,6 +486,15 @@ def split_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
                               plan.model_rank)
 
 
+def model_run(total: int) -> tuple[int, int]:
+    """(start, length) of this rank's run of `total` entries as
+    `split_to_model` deals them; all of them without a model axis."""
+    plan = current()
+    if plan is None or plan.model_dim is None:
+        return 0, total
+    return _run(total, -(-total // plan.model_size), plan.model_rank)
+
+
 def all_reduce_model(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """`x` reduced (`op`: "sum" or "max") over `model`, replicated; no grad
     (serving's partial-softmax statistics)."""

@@ -11,6 +11,7 @@ caller falls back to a plain version.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -127,6 +128,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.chain_fold_roundtrip.restype = I
     lib.fold_dadd_probe_launch.argtypes = [P, L, D, D, P]
     lib.fold_dadd_probe_launch.restype = I
+    lib.silu_fwd_launch.argtypes = [P, L, P, L, L, I, P]
+    lib.silu_fwd_launch.restype = I
+    lib.silu_bwd_launch.argtypes = [P, L, P, L, P, L, L, I, P]
+    lib.silu_bwd_launch.restype = I
     lib.repro_cuda_error_string.argtypes = [I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -175,4 +180,14 @@ def check(err: int, kernel: str) -> None:
 
 def stream_handle(device) -> int:
     """The handle of PyTorch's current stream on `device`, for a launch."""
-    return torch.cuda.current_stream(device).cuda_stream
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def on_device(device):
+    """A context that makes `device` current for a launch, where it is not."""
+    device = torch.device(device)
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

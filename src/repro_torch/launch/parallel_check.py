@@ -18,13 +18,21 @@ gathered cache leaf, and the prefill and per-step decode ms of both, timed
 alike.  Rank 0 prints one JSON line per case and writes them all to
 `--out`.
 
+With `--trace`, step 1 of each train case runs under `BlockTrace` on both
+sides, and the first block, routing, mixer or MoE value that differs is
+reported (`compare_traces`); `--cases` picks cases by name.
+`ssd_head_split` is the same kind of check on one device: the SSD's heads
+in the runs a model axis deals out, against the whole call.
+
 Usage (one process per card; NCCL, met through a `file://` store):
   python -m repro_torch.launch.parallel_check --data 2 --model 2 [--out results.json]
   python -m repro_torch.launch.parallel_check --data 2 --model 2 --device cpu   # gloo, reduced cases
+  python -m repro_torch.launch.parallel_check --data 1 --model 4 --steps 1 --trace --cases "jamba reduced"
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -43,6 +51,8 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.launch import steps as S
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve import make_inputs
+from repro_torch.models import layers as L
+from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 from repro_torch.optim import OptConfig
 from repro_torch.tree import leaves
@@ -105,7 +115,70 @@ def _update_err(a, b, start) -> float:
     return worst
 
 
-def run_case(case, mesh, device, steps: int, seed: int = 0) -> dict:
+class BlockTrace:
+    """While entered: the values at `POINTS`, recorded in call order (the
+    forward, then remat's recompute): each block's output, each MoE
+    routing's experts, and in a Mamba / MoE block the in-projection's
+    output (the conv's input), the gated rows (the norm's input), the
+    mixer's output and the MoE's output."""
+
+    #: name -> (module, function, what to record of (args, result))
+    POINTS = {
+        "block": (T, "_apply_block", lambda a, out: out[0]),
+        "routing": (L, "_top_k", lambda a, out: out[1]),
+        "mixer in_proj": (ssm, "_causal_conv", lambda a, out: a[0]),
+        "mixer gated rows": (ssm, "rmsnorm", lambda a, out: a[0]),
+        "mixer out": (ssm, "mamba_forward", lambda a, out: out[0]),
+        "moe out": (L, "moe", lambda a, out: out[0]),
+    }
+
+    def __enter__(self):
+        self.records = {name: [] for name in self.POINTS}
+        self._saved = {}
+        for name, (mod, fn, what) in self.POINTS.items():
+            orig = self._saved[name] = getattr(mod, fn)
+
+            def traced(*args, _orig=orig, _what=what, _rec=self.records[name]):
+                out = _orig(*args)
+                _rec.append(_what(args, out).detach().clone())
+                return out
+
+            setattr(mod, fn, traced)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, fn, _) in self.POINTS.items():
+            setattr(mod, fn, self._saved[name])
+
+
+def compare_traces(single: BlockTrace, sharded: BlockTrace, rank: int, batch: int, hosts: int) -> dict:
+    """Per traced point: the calls whose values differ between one device's
+    trace (on the global batch) and a rank's (its `batch` rows; a routing's
+    tokens batch-major), the first of them and its largest |difference|
+    (for routings: the tokens routed otherwise)."""
+    out = {}
+    for name in BlockTrace.POINTS:
+        unequal, first = [], None
+        for i, (a, b) in enumerate(zip(single.records[name], sharded.records[name])):
+            if name == "routing":
+                a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+                per = a.shape[0] // (batch * hosts)
+                a = a[rank * batch * per:(rank + 1) * batch * per]
+                diff = float((a != b).any(-1).sum())
+            else:
+                a = a[rank * batch:(rank + 1) * batch]
+                diff = float((a.float() - b.float()).abs().max()) if not torch.equal(a, b) else 0.0
+            if diff:
+                unequal.append(i)
+                first = first or {"call": i, "max_abs_diff": diff}
+        out[name] = {"calls": [len(single.records[name]), len(sharded.records[name])], "unequal_calls": unequal,
+                     "first_unequal": first}
+    return out
+
+
+def run_case(case, mesh, device, steps: int, seed: int = 0, trace: bool = False) -> dict:
+    """One train case; with `trace`, step 1 of both steps under `BlockTrace`
+    and the two traces compared (`compare_traces`)."""
     name, arch, optimizer, full, over, batch, seq, by_leaf = case
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, **over) if full else cfg.reduced(**over)
@@ -132,7 +205,8 @@ def run_case(case, mesh, device, steps: int, seed: int = 0) -> dict:
     p, s = init()
     host = lambda tree: [t.to("cpu", torch.float32, copy=True) for t in leaves(tree)] if by_leaf else None
     start = host((p, s))
-    (p, s, m1), single_first = _timed(lambda: single(p, s, whole(1), 1), device)
+    with BlockTrace() if trace else contextlib.nullcontext() as single_trace:
+        (p, s, m1), single_first = _timed(lambda: single(p, s, whole(1), 1), device)
     ref = host((p, s))
     single_ms = [_timed(lambda: single(p, s, whole(k), k), device)[1] for k in range(2, steps + 2)]
     del p, s
@@ -144,7 +218,8 @@ def run_case(case, mesh, device, steps: int, seed: int = 0) -> dict:
     dp, ds = shd.distribute_tree(state, (shd.param_shardings(mesh, state[0]), shd.opt_shardings(mesh, state[1])))
     del state
     sharded = S.make_sharded_train_step(cfg, opt, mesh)
-    (dp, ds, m), sharded_first = _timed(lambda: sharded(dp, ds, local(1), 1), device)
+    with BlockTrace() if trace else contextlib.nullcontext() as sharded_trace:
+        (dp, ds, m), sharded_first = _timed(lambda: sharded(dp, ds, local(1), 1), device)
     diff = errs = None
     if by_leaf:
         got = [t.full_tensor().to("cpu", torch.float32) for t in leaves((dp, ds))]
@@ -165,6 +240,8 @@ def run_case(case, mesh, device, steps: int, seed: int = 0) -> dict:
            "sharded_ms_all": sharded_ms, "single_ms_all": single_ms}
     if device.type == "cuda":
         out["sharded_peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
+    if trace:
+        out["trace"] = compare_traces(single_trace, sharded_trace, rank, batch, hosts)
     return out
 
 
@@ -212,6 +289,76 @@ def run_serve_case(case, mesh, device, seed: int = 0) -> dict:
             "sharded_decode_ms_all": sharded_ms, "single_decode_ms_all": single_ms}
 
 
+#: The SSD head-split checks (`ssd_head_split`): (name, arch, full width,
+#: batch, seq) in the baseline form: reduced mamba2 and jamba at the train
+#: cases' batch and seq, and mamba2-780m at full width (48 heads) at the
+#: train phase's batch 4 x seq 512.
+SSD_SPLITS = (("mamba2 reduced", "mamba2-780m", False, 4, 32),
+              ("jamba reduced", "jamba-1.5-large-398b", False, 4, 32),
+              ("mamba2-780m", "mamba2-780m", True, 4, 512))
+
+
+def ssd_head_split(arch: str, runs: int, device, full: bool = False, batch: int = 4, seq: int = 32,
+                   seed: int = 0) -> dict:
+    """A mixer's SSD (`ssm._ssd_heads`, baseline form) on one device, on all
+    its heads and on its heads split into `runs` runs as the sharded step's
+    ranks hold them (`parallel.split_to_model`: runs of ceil(H / runs), each
+    a contiguous copy; the rank's `a_log` / `dt_bias` / `skip_d` shards and
+    its place among the heads, `parallel.model_run`; the cotangent's run of
+    the heads), forward and backward under
+    `layers.f32_accumulation`, as the train step runs it.  The inputs are
+    laid out as `ssm.mamba_forward` hands them over (z, x and dt column
+    slices of one projection, B and C expanded to heads).  Per output (y,
+    the final state) and grad (z, x, B, C, dt, `a_log`, `dt_bias`,
+    `skip_d`): whether the runs' results, concatenated, equal the whole
+    call's (`torch.equal`), and the largest |difference|."""
+    device = torch.device(device)
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, ssm_impl="baseline") if full else cfg.reduced(ssm_impl="baseline")
+    b, s, h, hp, n = batch, seq, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(device, dtype)
+
+    proj = draw(b, s, 2 * cfg.d_inner + 2 * cfg.ssm_groups * n + h)
+    z, xbc, dt = ssm._split_proj(cfg, proj)
+    xi, B, C = ssm._split_xbc(cfg, xbc)
+    inputs = {"z": z.reshape(b, s, h, hp), "x": xi.reshape(b, s, h, hp), "B": ssm._expand_groups(cfg, B),
+              "C": ssm._expand_groups(cfg, C), "dt": dt}
+    params = {"a_log": torch.log(torch.arange(1, h + 1, dtype=torch.float32, device=device))
+              + draw(h, scale=0.1, dtype=torch.float32),
+              "dt_bias": draw(h, scale=0.5, dtype=torch.float32),
+              "skip_d": 1 + draw(h, scale=0.1, dtype=torch.float32)}
+    gy, gs = draw(b, s, h, hp), draw(b, h, hp, n)
+
+    def run(ins, ps, gy_run, gs_run, place=None):
+        ins = {k: v.detach().requires_grad_() for k, v in ins.items()}
+        ps = {k: v.detach().clone().requires_grad_() for k, v in ps.items()}
+        with L.f32_accumulation():
+            y, state = ssm._ssd_heads(ps, cfg, ins["z"], ins["x"], ins["B"], ins["C"], ins["dt"], place=place)
+            grads = torch.autograd.grad((y, state), [*ins.values(), *ps.values()],
+                                        (gy_run.reshape(y.shape), gs_run))
+        return {"y": y.detach().reshape(gy_run.shape), "state": state.detach(),
+                **dict(zip([*ins, *ps], grads))}
+
+    whole = run(inputs, params, gy, gs)  # on the views, laid out as the mixer's
+    per = -(-h // runs)
+    parts = []
+    for lo in range(0, h, per):
+        hi = min(lo + per, h)
+        parts.append(run({k: v.narrow(2, lo, hi - lo).contiguous() for k, v in inputs.items()},
+                         {k: v[lo:hi] for k, v in params.items()}, gy[:, :, lo:hi].contiguous(),
+                         gs[:, lo:hi].contiguous(), (lo, h)))
+    head_dim = {"state": 1, "a_log": 0, "dt_bias": 0, "skip_d": 0}
+    out = {}
+    for name, ref in whole.items():
+        got = torch.cat([p[name] for p in parts], dim=head_dim.get(name, 2))
+        out[name] = {"equal": bool(torch.equal(got, ref)), "max_abs_diff": float((got.float() - ref.float()).abs().max())}
+    return {"arch": arch, "full_width": full, "heads": h, "runs": runs, "heads_per_run": per, "batch": b, "seq": s,
+            "exact": all(v["equal"] for v in out.values()), "tensors": out}
+
+
 def _rank(rank, world, args, store):
     cuda = args.device == "cuda"
     device = torch.device("cuda", rank) if cuda else torch.device("cpu")
@@ -225,7 +372,9 @@ def _rank(rank, world, args, store):
         mesh = make_host_mesh(data=args.data, model=args.model, device=device.type)
         records = []
         train = CASES if cuda else [c for c in CASES if not c[3]]  # full width on cards only
-        runs = [(run_case, c, args.steps) for c in train] + [(run_serve_case, c) for c in SERVE_CASES]
+        runs = [(run_case, c, args.steps, 0, args.trace) for c in train] + [(run_serve_case, c) for c in SERVE_CASES]
+        if args.cases:
+            runs = [r for r in runs if r[1][0] in args.cases.split(",")]
         for fn, case, *more in runs:
             records.append(fn(case, mesh, device, *more))
             if rank == 0:
@@ -247,6 +396,8 @@ def main():
     ap.add_argument("--steps", type=int, default=5, help="timed steps after step 1")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--out", default=None)
+    ap.add_argument("--cases", default=None, help="comma-separated case names (default: all)")
+    ap.add_argument("--trace", action="store_true", help="compare the train cases' step 1 block by block")
     args = ap.parse_args()
     world = args.data * args.model
     if args.device == "cuda" and torch.cuda.device_count() < world:

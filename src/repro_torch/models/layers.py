@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import parallel as P
+from repro_torch.kernels import silu as ksilu
 
 COMPUTE_DTYPE = torch.bfloat16
 F32 = torch.float32
@@ -54,8 +55,26 @@ def _he(shape, fan_in, generator, device) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=device, dtype=F32) / math.sqrt(fan_in)
 
 
+class _Silu(torch.autograd.Function):
+    """`jax.nn.silu` as the reference rounds it, forward and backward
+    (`kernels.silu`: the kernels on the card, their plain versions on the
+    CPU).  The backward saves only the input and recomputes the logistic."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return ksilu.silu_fwd(x)
+
+    @staticmethod
+    def backward(ctx, h):
+        (x,) = ctx.saved_tensors
+        return ksilu.silu_bwd(x, h)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    return torch.nn.functional.silu(x)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Silu.apply(x)
+    return ksilu.silu_fwd(x)
 
 
 # ---------------------------------------------------------------------------

@@ -99,14 +99,18 @@ def einsum3(sub: str, *ops: torch.Tensor) -> torch.Tensor:
 class _Broadcast(torch.autograd.Function):
     """`v` expanded to `shape`.  The backward sums the grad over the
     broadcast dims with them made innermost and contiguous, so that each
-    element's sum runs over one contiguous row: the same whichever heads
-    the tensor holds (a rank of the sharded step holds H / model).  A
-    broadcast's own backward reduces over outer dims in an order that
-    depends on the size of the inner ones."""
+    element's sum runs over one contiguous row (a broadcast's own backward
+    reduces over outer dims in an order that depends on the size of the
+    inner ones).  A CUDA reduction splits its rows over threads and blocks
+    by the number of rows, so with `place` = (offset, total) a 1-d `v`,
+    this rank's run of a vector of `total` (a rank of the sharded step holds
+    H / model heads), sums its rows at their own place among `total` rows,
+    the others zero: each row as the whole vector's would be, on any
+    device."""
 
     @staticmethod
-    def forward(ctx, v, shape):
-        ctx.vshape = v.shape
+    def forward(ctx, v, shape, place):
+        ctx.vshape, ctx.place = v.shape, place
         return v.expand(shape)
 
     @staticmethod
@@ -114,12 +118,19 @@ class _Broadcast(torch.autograd.Function):
         vs = (1,) * (g.dim() - len(ctx.vshape)) + tuple(ctx.vshape)
         red = [i for i in range(g.dim()) if vs[i] == 1 and g.shape[i] != 1]
         keep = [i for i in range(g.dim()) if i not in red]
-        out = g.permute(keep + red).contiguous().reshape(*(g.shape[i] for i in keep), -1).sum(-1)
-        return out.reshape(ctx.vshape), None
+        rows = g.permute(keep + red)
+        if ctx.place is None:
+            out = rows.contiguous().reshape(*(g.shape[i] for i in keep), -1).sum(-1)
+        else:
+            (offset, total), n = ctx.place, ctx.vshape[0]
+            whole = g.new_zeros(total, math.prod(g.shape[i] for i in red))
+            whole[offset:offset + n] = rows.reshape(n, -1)
+            out = whole.sum(-1)[offset:offset + n]
+        return out.reshape(ctx.vshape), None, None
 
 
-def _bcast(v, like):
-    return _Broadcast.apply(v, like.shape)
+def _bcast(v, like, place=None):
+    return _Broadcast.apply(v, like.shape, place)
 
 
 def _segsum_decay(a_cs):
@@ -309,22 +320,23 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _ssd_heads(p, cfg: ModelConfig, z, xi, B, C, dt, init_state=None):
+def _ssd_heads(p, cfg: ModelConfig, z, xi, B, C, dt, init_state=None, place=None):
     """The SSD of the heads that `z`, `xi` (B, S, heads, P), `dt` (B, S,
     heads) and `p`'s `a_log` / `skip_d` / `dt_bias` hold, with `B` / `C` at
     group rank (B, S, groups, N) for `ssm_impl="grouped"`, else per head
     (B, S, heads, N): the gated rows y * silu(z), (B, S, heads x P), and
-    the final state.
+    the final state.  `place` = (first head, all heads) where these are a
+    rank's run of the mixer's heads (`_Broadcast`).
 
     Sequences are padded (at the end) to a chunk multiple; padded steps
     have dt forced to 0, so they neither decay nor feed the state: the
     returned state is exactly the post-last-real-token state."""
     b, s, h, hp = xi.shape
-    dt = _softplus(dt.to(F32) + _bcast(p["dt_bias"], dt))  # (B,S,H)
+    dt = _softplus(dt.to(F32) + _bcast(p["dt_bias"], dt, place))  # (B,S,H)
     pad = (-s) % cfg.ssm_chunk
     if pad:  # dt = 0 -> identity step
         dt, xi, B, C = (torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (dt, xi, B, C))
-    dA = dt * _bcast(-torch.exp(p["a_log"]), dt)  # (B,Sp,H)
+    dA = dt * _bcast(-torch.exp(p["a_log"]), dt, place)  # (B,Sp,H)
     xb = xi * dt[..., None].to(COMPUTE_DTYPE)
     if cfg.ssm_impl == "grouped":
         y, state = ssd_chunked_grouped(xb, dA, B, C, cfg.ssm_chunk, init_state)
@@ -384,7 +396,7 @@ def mamba_forward(p, cfg: ModelConfig, x, init_state=None, conv_history=None):
     z, xi = z.reshape(b, s, h, hp), xi.reshape(b, s, h, hp)
     if heads:  # this rank's heads (and groups)
         z, xi, B, C, dt = (P.split_to_model(t, 2) for t in (z, xi, B, C, dt))
-    y, state = _ssd_heads(p, cfg, z, xi, B, C, dt, init_state)
+    y, state = _ssd_heads(p, cfg, z, xi, B, C, dt, init_state, (P.model_run(h)[0], h) if heads else None)
     if heads:
         y = P.gather_model(y, -1)
     y = rmsnorm(y, p["norm"], cfg.norm_eps)

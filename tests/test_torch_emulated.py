@@ -227,3 +227,67 @@ def test_chain_fold_emulated_on_the_fastpath_grid(emu_lib, line):
     for b0, pn, n, t_bus in chains:
         exp = ref_eval._numpy_chain(b0, pn, n, t_bus)
         assert np.array_equal(emulated_chain(emu_lib, "roundtrip", b0, pn, n, t_bus), exp)
+
+
+def silu_case(layout: str, dtype, seed: int) -> torch.Tensor:
+    """silu's input in a layout of its callers: "dense" (a matmul's output),
+    "permuted" (an expert path's einsum output), "rows" (a column slice of a
+    projection, the mixer's `z`), or "patterns" (every bf16 value)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return torch.from_numpy((rng.standard_normal(shape) * 4).astype(np.float32)).to(dtype)
+
+    if layout == "dense":
+        return draw(3, 5000)
+    if layout == "permuted":
+        return draw(4, 2, 3, 300).permute(1, 0, 2, 3)
+    if layout == "rows":
+        return draw(2, 7, 2500)[..., 100:2400]
+    return torch.from_numpy((np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)).to(dtype)
+
+
+def nan_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return bool(((a == b) | (a.isnan() & b.isnan())).all()) and torch.equal(a.signbit() & ~a.isnan(),
+                                                                            b.signbit() & ~b.isnan())
+
+
+def f32_close(got: torch.Tensor, exp: torch.Tensor, scale: torch.Tensor) -> bool:
+    """Within 8 f32 ulps of `scale` (or 2^-120), nan where nan: the host's
+    `expf` is not torch's, so in f32 the two differ by an ulp or a few after
+    the ops that follow it (on the card both call CUDA's `expf`)."""
+    fin = exp.isfinite() & scale.isfinite()
+    err = (got.double() - exp.double()).abs()[fin]
+    return torch.equal(got.isnan(), exp.isnan()) and bool((err <= 2.0**-21 * scale.double()[fin] + 2.0**-120).all())
+
+
+@pytest.mark.parametrize("layout", ["dense", "permuted", "rows", "patterns"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_silu_emulated_matches_plain(emu_lib, layout, dtype):
+    """`silu_fwd` and `silu_bwd` over the walks the wrapper hands them
+    (`kernels.silu._walk`: one dense row, or rows with their own stride;
+    tiles of 2048 meeting a row's end), against the plain versions: bf16
+    bit for bit, f32 by `f32_close`; a row stride shorter than the row is
+    refused."""
+    from repro_torch.kernels import silu as ksilu
+
+    a = silu_case(layout, dtype, 5)
+    h = silu_case(layout, dtype, 6) if layout != "patterns" else a.flip(0)
+    a, dense, rows, cols, sa, y = ksilu._walk(a)
+    assert dense == (layout != "rows")
+    code = ksilu._DTYPES[dtype]
+    assert emu_lib.silu_fwd_launch(a.data_ptr(), sa, y.data_ptr(), rows, cols, code, None) == 0
+    if dense:
+        h = torch.empty_like(a).copy_(h)
+        sh = sa
+    else:
+        sh = ksilu._rows(h)[1]
+    out = torch.empty_like(y)
+    assert emu_lib.silu_bwd_launch(a.data_ptr(), sa, h.data_ptr(), sh, out.data_ptr(), rows, cols, code, None) == 0
+    fwd, bwd = ksilu.silu_fwd_plain(a), ksilu.silu_bwd_plain(a, h)
+    if dtype == torch.bfloat16:
+        assert nan_equal(y, fwd) and nan_equal(out, bwd), layout
+    else:
+        assert f32_close(y, fwd, fwd.abs()), layout
+        assert f32_close(out, bwd, h.abs() * (1 + a.abs())), layout
+    assert emu_lib.silu_fwd_launch(a.data_ptr(), cols - 1, y.data_ptr(), 2, cols, code, None) != 0

@@ -268,3 +268,57 @@ def test_sharded_step_over_nccl_equals_the_unsharded_step(cuda, tmp_path):
     [rec] = run_child(tmp_path, NCCL_STEP, world=1, backend="nccl", timeout=300)
     assert rec["backend"] == "nccl" and rec["mismatches"] == []
     assert rec["equal"]["unequal_leaves"] == [] and rec["equal"]["loss"] and rec["equal"]["grad_norm"]
+
+
+#: silu's inputs on the card: (shape, the part of the last dim read or None):
+#: qwen3-4b's MLP hidden at decode and train, mamba2-780m's gate z read in
+#: its projection, and a ragged slice.
+SILU_CASES = [((4, 1, 9728), None), ((4, 512, 9728), None), ((4, 512, 6448), 3072), ((3, 7, 2049), 2000)]
+
+
+@pytest.mark.parametrize("shape,cols", SILU_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_silu_kernels_match_plain(cuda, shape, cols, dtype):
+    """`silu_fwd` / `silu_bwd` on the card equal their plain versions on the
+    same inputs bit for bit, one launch each."""
+    from repro_torch.kernels import silu as ks
+
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy((rng.standard_normal(shape) * 3).astype(np.float32)).to(cuda, dtype)
+    a = a if cols is None else a[..., :cols]
+    h = torch.from_numpy(rng.standard_normal(a.shape).astype(np.float32)).to(cuda, dtype)
+    before = dict(ks.LAUNCHES)
+    y, g = ks.silu_fwd(a), ks.silu_bwd(a, h)
+    torch.cuda.synchronize()
+    assert {k: ks.LAUNCHES[k] - before[k] for k in before} == {"silu_fwd": 1, "silu_bwd": 1}
+    assert torch.equal(y, ks.silu_fwd_plain(a)) and torch.equal(g, ks.silu_bwd_plain(a, h))
+
+
+def test_silu_kernels_on_every_bf16_value(cuda):
+    """Every bf16 value (subnormals, infinities, nans) through the kernels
+    and the autograd Function, against the plain versions: equal bits where
+    not nan, nan where nan."""
+    from repro_torch.kernels import silu as ks
+    from repro_torch.models import layers
+
+    x = torch.from_numpy((np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)).to(cuda, torch.bfloat16)
+    h = x.flip(0)
+    a = x.clone().requires_grad_()
+    y = layers.silu(a)
+    y.backward(h)
+    for got, exp in ((y.detach(), ks.silu_fwd_plain(x)), (a.grad, ks.silu_bwd_plain(x, h))):
+        nan = exp.isnan()
+        assert torch.equal(got.isnan(), nan)
+        assert torch.equal(got[~nan].view(torch.int16), exp[~nan].view(torch.int16))
+
+
+def test_ssd_head_split_is_exact_on_the_card(cuda):
+    """The SSD's heads split into the runs of 4 and 2 ranks on one card,
+    forward and backward, equal to the whole call bit for bit
+    (`parallel_check.ssd_head_split`, chip_smoke.py's part `ssd_head_split`)."""
+    from repro_torch.launch import parallel_check as pc
+
+    for name, arch, full, batch, seq in pc.SSD_SPLITS:
+        for runs in (4, 2):
+            out = pc.ssd_head_split(arch, runs, cuda, full, batch, seq)
+            assert out["exact"], (name, runs, {k: v for k, v in out["tensors"].items() if not v["equal"]})

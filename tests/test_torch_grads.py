@@ -29,13 +29,13 @@ from repro_torch.models import transformer as PT
 from repro_torch.models.convert import params_from_reference
 from repro_torch.tree import leaves
 
-TOL_LOSS = 0.01        # loss and ce, relative (worst 3.0e-3, jamba; 6.1e-4 the others)
-TOL_AUX = 0.006        # MoE aux loss, relative (worst 3.2e-3, jamba; 1.3e-4 the others)
-TOL_GRAD = 0.097       # a grad leaf end to end, nine archs (worst 0.0485, whisper's ln_cross)
-TOL_GRAD_BLOCK = 0.125  # a grad leaf of one block on the reference's input, jamba (worst 0.0623, dt_bias)
+TOL_LOSS = 0.01        # loss and ce, relative (worst 3.3e-3, forced jamba; 4.6e-4 the others)
+TOL_AUX = 0.006        # MoE aux loss, relative (worst 4.6e-3, jamba; 3.8e-3 the others)
+TOL_GRAD = 0.082       # a grad leaf end to end, nine archs (worst 0.0411, llama-vision's ln1)
+TOL_GRAD_BLOCK = 0.042  # a grad leaf of one block on the reference's input, jamba (worst 0.0210, dt_bias)
 # skip_d's grad is a sum over (batch, seq, head_dim) of bf16 products, which
 # the reference's broadcast transpose accumulates in bf16 and the port in f32
-# (rounded once): PERF.md section 6.  Worst 0.2244 (a jamba block), 0.125
+# (rounded once): PERF.md section 6.  Worst 0.321 (a jamba block), 0.087
 # (mamba2 end to end).
 TOL_GRAD_SKIP_D = 0.45
 BATCH, SEQ = 2, 16

@@ -13,11 +13,11 @@ probabilities at those experts.  Every other token must route as the
 reference does.  The main path is not touched.
 
 With every routing the reference's, 16 layers of bf16 rounding still
-compound: each of jamba's 14 Mamba mixers rounds about 1% of a value
-otherwise than the reference (`TOL_MAMBA` in test_torch_models.py), and a
-router-free reduced mamba2 of the same 16 layers drifts as far
-(`test_mamba2_at_jambas_depth`).  So the bounds below are set from these
-readings, not at `TOL_MODEL` / `TOL_GRAD`.
+compound: `silu` rounds as the reference's, but each of jamba's 14 Mamba
+mixers keeps softplus's f32 ulps (`TOL_MAMBA` in test_torch_models.py) and
+the backward's other roundings, and a router-free reduced mamba2 of the
+same 16 layers drifts as far (`test_mamba2_at_jambas_depth`).  So the
+bounds below are set from these readings, not at `TOL_MODEL` / `TOL_GRAD`.
 """
 import jax
 import jax.numpy as jnp
@@ -39,14 +39,19 @@ BATCH, SEQ = 2, 16
 
 # The largest move of a pairwise router-logit difference (per token, the
 # spread of log p_port - log p_reference over the experts) with every
-# routing forced measured 0.449 (the last MoE layer); a token whose
-# reference margin is below twice that is forced.
+# routing forced measured 0.449 (the last MoE layer) with a `silu` that
+# rounded once, 0.289 since; a token whose reference margin is below twice
+# the first is forced (246 of 256 either way).
 ROUTER_MARGIN = 0.9
-# Forced readings: logits 0.159, the grads' global relative error 0.200
+# Forced readings: logits 0.0861, the grads' global relative error 0.129
 # (2-norm of the difference over all leaves over the reference's), each
-# bound twice the reading.  Unforced: 0.194 and 0.255.
-TOL_FORCED_LOGITS = 0.32
-TOL_FORCED_GRADS = 0.4
+# bound twice the reading.  Unforced: 0.123 and 0.146.
+TOL_FORCED_LOGITS = 0.17
+TOL_FORCED_GRADS = 0.25
+# Reduced mamba2 at 16 layers: logits 0.102 (bound twice that), grads 0.209
+# (held at 0.4, the bound before `silu` rounded as the reference's).
+TOL_DEPTH_LOGITS = 0.2
+TOL_DEPTH_GRADS = 0.4
 
 
 def _reference_routing(monkeypatch):
@@ -149,9 +154,10 @@ def test_jamba_forced_routing_matches_reference(monkeypatch):
 
 def test_mamba2_at_jambas_depth():
     """Reduced mamba2 at jamba's 16 layers, no router: its logits and
-    grads drift from the reference's as far as forced jamba's (readings
-    0.193 and 0.194), within the same bounds; at its own 2 layers
-    `TOL_MODEL` holds (tests/test_torch_models.py)."""
+    grads drift from the reference's about as far as forced jamba's
+    (readings 0.102 and 0.209), within `TOL_DEPTH_LOGITS` /
+    `TOL_DEPTH_GRADS`; at its own 2 layers `TOL_MODEL` holds
+    (tests/test_torch_models.py)."""
     cfg, ref_cfg, params, inputs = _setup("mamba2-780m", num_layers=16)
     jb = {k: jnp.asarray(v) for k, v in inputs.items()}
     tb = {k: torch.from_numpy(v) for k, v in inputs.items()}
@@ -162,6 +168,6 @@ def test_mamba2_at_jambas_depth():
     loss_t, _, gt = steps.loss_and_grads(cfg, pt, tb)
     readings = {"logits": rel_err(lj, lt), "loss": abs(float(loss_t) - float(loss_j)) / float(loss_j),
                 "grads": _grad_err(gj, leaves(gt))}
-    assert readings["logits"] <= TOL_FORCED_LOGITS, readings
+    assert readings["logits"] <= TOL_DEPTH_LOGITS, readings
     assert readings["loss"] <= TOL_LOSS, readings
-    assert readings["grads"] <= TOL_FORCED_GRADS, readings
+    assert readings["grads"] <= TOL_DEPTH_GRADS, readings

@@ -5,8 +5,8 @@ Inputs are drawn from a seed with numpy; weights are the reference's,
 carried across by `params_from_reference`.  Both sides compute in bf16
 with f32 statistics, but round at different places in a few spots (XLA
 fuses a `lax.scan` body and may keep f32 between bf16 ops; `rsqrt`,
-`exp` and `silu` differ by an f32 ulp on some inputs; sums are taken in
-other orders), so outputs are compared by a stated tolerance: the largest
+`exp` and `softplus` differ by an f32 ulp on some inputs; sums are taken
+in other orders), so outputs are compared by a stated tolerance: the largest
 |port - reference| over the largest |reference|, each bound set at no more
 than twice the worst value measured on this grid (the measured worst is
 in the comment beside it).  Integer results (routing, caches' positions)
@@ -34,18 +34,19 @@ from repro_torch.models.convert import params_from_reference, tensor_from_numpy
 # Relative bounds (max |port - ref| / max |ref|), each at most twice the
 # worst measured on this grid.  One bf16 ulp is 2^-8 to 2^-7 (0.0039 to
 # 0.0078) of a value.  `rmsnorm`, `rope`, `_sdpa`, the baseline SSD scan,
-# the SSD decode step and the causal conv agree bit for bit (measured 0), so
-# they are held to 0.
-TOL_LAYER = 0.012   # attention, MLP and MoE on identical inputs (worst 0.0069)
-TOL_MAMBA = 0.025   # the whole Mamba2 mixer, softplus and silu in f32 (worst 0.0148)
-TOL_BLOCK = 0.03    # a block's output and caches, a reduced arch, the reference's input (worst 0.0187)
+# the SSD decode step and the causal conv agree bit for bit (measured 0), and
+# so do the MLP and MoE layers, whose `silu` rounds as `jax.nn.silu` does
+# (tests/test_torch_silu.py), so they are held to 0.
+TOL_LAYER = 0.0084  # attention on identical inputs (worst 0.0042, decode's output)
+TOL_MAMBA = 3.7e-5  # the whole Mamba2 mixer: softplus's f32 ulps (worst 1.88e-5, jamba grouped's state)
+TOL_BLOCK = 0.015   # a block's output and caches, a reduced arch, the reference's input (worst 0.0076)
 TOL_HEAD = 5e-4     # final norm and head on the reference's own last hidden state (worst 2.55e-4)
 TOL_MODEL = 0.035   # whole-model logits and caches, through 2-16 layers (worst 0.0189)
 # jamba end to end: an exact tie between the 2nd and 3rd router probability
 # (bf16 logits) at rep 0, block 7 flips one token's routing after a 1-ulp
 # difference upstream, and the flip carries to the logits; its blocks are
 # held to TOL_BLOCK on the reference's own inputs in the walk above.
-TOL_MODEL_ARCH = {"jamba-1.5-large-398b": 0.4}  # worst 0.201
+TOL_MODEL_ARCH = {"jamba-1.5-large-398b": 0.24}  # worst 0.123
 
 
 def rel_err(ref, got) -> float:
@@ -138,7 +139,7 @@ def test_attention_and_decode_match_reference():
 def test_mlp_matches_reference():
     cfg, ref_cfg, pj, pt = _layer_params("qwen3-4b", RL.mlp_init)
     xj, xt = bf16(np.random.default_rng(5), (2, 8, 128))
-    assert rel_err(RL.mlp(pj, xj), PL.mlp(pt, xt)) <= TOL_LAYER
+    assert rel_err(RL.mlp(pj, xj), PL.mlp(pt, xt)) == 0.0
 
 
 MOE_CASES = [  # (moe_dispatch, overrides): top-2 of 4 experts with and
@@ -157,7 +158,7 @@ def test_moe_matches_reference(dispatch, over):
     out_j, aux_j = RL.moe(pj, ref_cfg, xj)
     out_t, aux_t = PL.moe(pt, cfg, xt)
     assert out_t.dtype == torch.bfloat16
-    assert rel_err(out_j, out_t) <= TOL_LAYER
+    assert rel_err(out_j, out_t) == 0.0
     assert abs(float(aux_j) - float(aux_t)) <= 1e-5 * abs(float(aux_j))
 
 
@@ -415,7 +416,7 @@ def test_arch_end_to_end_matches_reference(arch):
     lt, aux_t = PT.forward(pt, cfg, tb)
     assert lt.shape == (2, SEQ, cfg.vocab_size) and lt.dtype == torch.bfloat16
     assert rel_err(lj, lt) <= tol
-    assert abs(float(aux_j) - float(aux_t)) <= 0.006 * max(abs(float(aux_j)), 1e-6)  # worst 0.0032
+    assert abs(float(aux_j) - float(aux_t)) <= 0.006 * max(abs(float(aux_j)), 1e-6)  # worst 0.0046
 
     pre_j, pre_t = dict(jb), dict(tb)
     pre_j["tokens"], pre_t["tokens"] = jb["tokens"][:, :PROMPT], tb["tokens"][:, :PROMPT]

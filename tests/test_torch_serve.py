@@ -194,7 +194,8 @@ def _load_chip_smoke():
 def test_chip_smoke_lm_phase_on_cpu():
     cs = _load_chip_smoke()
     rec = cs.drive_lm_serve("qwen3-4b", 2, 8, 3, "cpu", reduced=True)
-    assert rec["launches"] == {"ntt_tile": 0, "ntt_pair": 0, "modmul": 0}
+    assert rec["launches"] == {"ntt_tile": 0, "ntt_pair": 0, "modmul": 0, "chain_fold": 0, "silu_fwd": 0,
+                               "silu_bwd": 0}  # CPU: the plain versions
     assert rec["consistency"]["seq"] == 10 and rec["consistency"]["finite"]
     assert rec["consistency"]["decode_vs_forward"]["ok"] and "profile" not in rec
     for arch in ("whisper-small", "jamba-1.5-large-398b"):

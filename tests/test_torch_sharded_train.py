@@ -372,6 +372,7 @@ def test_chip_smoke_dist_phase_on_cpu(tmp_path):
     assert rec["compression"]["mismatches"] == [] and rec["compression"]["leaves"] == 14
     assert [r["step"] for r in rec["steps"]] == [1, 2, 3] and rec["backend"] == "gloo"
     assert len(rec["unsharded_step_ms_all"]) == 3 and rec["unsharded_step_ms"] > 0
-    assert rec["launches"] == {"ntt_tile": 0, "ntt_pair": 0, "modmul": 0, "chain_fold": 0}
+    assert rec["launches"] == {"ntt_tile": 0, "ntt_pair": 0, "modmul": 0, "chain_fold": 0, "silu_fwd": 0,
+                               "silu_bwd": 0}  # CPU: the plain versions
     assert rec["mesh"] == {"data": 1, "model": 1} and "peak_mib" not in rec
     assert sweep["status"] == {"skip": 1} and sweep["exit_code"] == 0
