@@ -18,7 +18,12 @@ Phases, one JSON line each:
               (`SILU_SHAPES`: qwen3-4b's MLP hidden, mamba2-780m's conv
               output and its gate read where it lies in the projection), an
               expert path's permuted einsum output and every bf16 value, in
-              bf16 and f32;
+              bf16 and f32; `softplus_fwd` / `softplus_bwd` (the SSD's
+              softplus as XLA's CPU rounds it) against theirs on all 2^32
+              f32 patterns and at mamba2-780m's dt, contiguous and as rows;
+              and part `split_products`: `parallel.block_of_product` against
+              the whole product's block for jamba's and mamba2's in-projection
+              splits over 4 ranks, with the width each block takes;
   4. main     `polymul_ntt` at n=65536 x batch 64 and n=4096 x batch 1024
               (16 MiB per operand: an RNS-CKKS batch of 64 towers at
               logN=16, and a batch of logN=12 polynomials), bit-exact
@@ -50,7 +55,9 @@ Phases, one JSON line each:
               exists, the whole polymul_ntt, and the RNS ops ct_mul,
               keyswitch, ct_mul_relin and rescale beside their floors; the
               silu kernels at `SILU_TIMED` beside their byte bound,
-              their plain versions and `F.silu` / `aten.silu_backward`.
+              their plain versions and `F.silu` / `aten.silu_backward`; the
+              softplus kernels at `SOFTPLUS_SHAPES` beside theirs and
+              `F.softplus` / `aten.softplus_backward`.
   9. lm       the LM serving path (`repro_torch.launch.serve`) on the card:
               qwen3-4b (36 layers, d_model 2560, vocab 151936) and
               mamba2-780m served at full size (batch 4, prompt 128, 32
@@ -68,7 +75,8 @@ Phases, one JSON line each:
               pinned buffers (as the path runs it) and on device memory,
               beside the dependency bound from the `fold_dadd_probe` DADD
               latency and the roofline bound.  The LM path launches
-              `silu_fwd` and none of B1-B3.
+              `silu_fwd` (and `softplus_fwd` for mamba2-780m) and none of
+              B1-B3.
  10. train    the LM training core (`repro_torch.launch.{steps,train}`):
               (a) qwen3-4b at full size (remat, AdamW with bf16 moments) and
               (b) mamba2-780m at full size (f32 AdamW), 8 steps each at batch
@@ -82,7 +90,8 @@ Phases, one JSON line each:
               at 13, the exact step list, and a restore equal bit for bit to
               the state it saved; (d) loss and every grad of the ten reduced
               archs, card against CPU on the same weights.  The path
-              launches `silu_fwd` and `silu_bwd` and no other kernel.
+              launches `silu_fwd` and `silu_bwd` (and the softplus pair
+              for mamba2-780m) and no other kernel.
  11. dist     the distribution layer (`repro_torch.distributed`,
               `launch.{mesh,steps,dryrun}`) with NCCL at world size 1,
               met through a `file://` store in a temporary directory, on a
@@ -123,8 +132,8 @@ Phases, one JSON line each:
               the sharded steps) in a child interpreter on the host, beside
               (a) and (b): its host seconds, the counts of run / skip / FAIL
               cells (a FAIL fails the phase) and each cell's roofline row.
-              The path launches `silu_fwd` and `silu_bwd` and no other
-              kernel.
+              The path launches `silu_fwd` and `silu_bwd` (and the softplus
+              pair for the SSD archs) and no other kernel.
 Then the `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises (exit code != 0).
 Imports nothing of `jax` or `repro`.
@@ -195,6 +204,8 @@ from repro_torch.launch.serve import make_inputs, serve, to_device  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.kernels import modmul as kmod  # noqa: E402
 from repro_torch.kernels import silu as ksilu  # noqa: E402
+from repro_torch.kernels import softplus as ksoftplus  # noqa: E402
+from repro_torch.distributed import parallel as dparallel  # noqa: E402
 from repro_torch.launch import parallel_check  # noqa: E402
 from repro_torch.kernels import ntt as kntt  # noqa: E402
 
@@ -330,6 +341,34 @@ SILU_INFO = {
     "silu_bwd": ("src/repro_torch/kernels/csrc/silu.cu",
                  "src/repro/models/layers.py:159 (jax.grad of jax.nn.silu, not Pallas)"),
 }
+#: The SSD mixer's kernels, which replace no Pallas kernel: `jax.nn.softplus`
+#: and its grad as XLA's CPU rounds them, where the JAX package calls it.
+SOFTPLUS_INFO = {
+    "softplus_fwd": ("src/repro_torch/kernels/csrc/softplus.cu",
+                     "src/repro/models/ssm.py:224 (jax.nn.softplus, not Pallas; also :263)"),
+    "softplus_bwd": ("src/repro_torch/kernels/csrc/softplus.cu",
+                     "src/repro/models/ssm.py:224 (jax.grad of jax.nn.softplus, not Pallas)"),
+}
+#: softplus's input on the LM path: mamba2-780m's `dt + dt_bias` (48 heads,
+#: f32) at train (batch 4 x seq 512) and decode (batch 4); the first is the
+#: kernels' row in the `kernels` line.
+SOFTPLUS_SHAPES = (("mamba2-780m dt train", (4, 512, 48)), ("mamba2-780m dt decode", (4, 48)))
+#: f32 operations an element (an FMA two): forward exp 21, log1p's rational
+#: branch 34 and its log branch 31 (both computed), 2 adds; backward a
+#: subtract, exp 21 and a multiply.
+SOFTPLUS_FLOPS = {"softplus_fwd": 88, "softplus_bwd": 23}
+#: Patterns a chunk of the exhaustive softplus check takes: 2^26 (256 MiB in f32).
+SOFTPLUS_CHUNK = 1 << 26
+#: The split products held against the whole product's block on the card:
+#: (name, rows, inner, whole width, ranks) for jamba's and mamba2's
+#: in-projection split over 4 ranks, reduced (batch 4 x seq 32) and at
+#: mamba2-780m's full width (batch 4 x seq 512, d_model 1536, 6448 columns).
+SPLIT_PRODUCTS = (("jamba reduced in_proj", 128, 128, 580, 4), ("mamba2 reduced in_proj", 128, 128, 548, 4),
+                  ("mamba2-780m in_proj", 2048, 1536, 6448, 4))
+#: Expert einsums ("ecd,edf->ecf") split over ranks by experts, recorded:
+#: (name, experts, capacity, d_model, d_ff, ranks) for reduced jamba on
+#: 1 x 4 and full-width qwen3-moe's 128 experts on 2 x 2.
+EXPERT_SPLITS = (("jamba reduced wi", 4, 64, 128, 256, 4), ("qwen3-moe wi", 128, 80, 2048, 768, 2))
 #: silu's inputs on the LM path at full size (batch 4; prompt 128 serving,
 #: seq 512 training): (name, shape of the tensor silu reads, the part of its
 #: last dim it reads (a column slice of a projection) or None).  qwen3-4b's
@@ -576,6 +615,132 @@ def check_silu(rng, device) -> dict:
     out = {"max_abs_err": errs, "cases": len(checks), "checks": checks, "float16_refused": refused}
     if any(errs.values()) or (torch.device(device).type == "cuda" and not refused):
         raise AssertionError(f"silu differs from its plain version: {out}")
+    return out
+
+
+def softplus_patterns(start: int, count: int, device) -> torch.Tensor:
+    """The f32 values of bit patterns start .. start + count - 1."""
+    bits = torch.arange(start, start + count, dtype=torch.int64, device=device)
+    return torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32).view(torch.float32)
+
+
+def softplus_differ(got: torch.Tensor, exp: torch.Tensor, nan_as_nan: bool) -> torch.Tensor:
+    """Where `got` and `exp` differ in their bits (with `nan_as_nan`, NaN
+    against NaN agrees)."""
+    ne = got.view(torch.int32) != exp.view(torch.int32)
+    return ne & ~(got.isnan() & exp.isnan()) if nan_as_nan else ne
+
+
+def check_softplus(rng, device, total: int = 1 << 32, chunk: int = SOFTPLUS_CHUNK) -> dict:
+    """`softplus_fwd` and `softplus_bwd` against their plain versions on
+    `device` on every f32 bit pattern (`total` of them from 0, in chunks),
+    the grad's cotangent the pattern's bitwise complement (so every pattern
+    appears as a cotangent too), bit for bit (the grad's NaNs as NaNs); then
+    at `SOFTPLUS_SHAPES`, contiguous and as rows of a wider tensor; and a
+    float64 tensor on the card refused.  The launches here are the check's
+    own: the caller resets the counts before the main path."""
+    differ = {name: 0 for name in SOFTPLUS_INFO}
+    errs = {name: 0.0 for name in SOFTPLUS_INFO}
+    t0 = time.perf_counter()
+
+    def compare(x, g):
+        out = ksoftplus.softplus_fwd(x)
+        want = ksoftplus.softplus_fwd_plain(x)
+        bad = softplus_differ(out, want, nan_as_nan=False)
+        differ["softplus_fwd"] += int(bad.sum())
+        errs["softplus_fwd"] = max(errs["softplus_fwd"], float_err(out, want))
+        dx, want = ksoftplus.softplus_bwd(x, want, g), ksoftplus.softplus_bwd_plain(x, want, g)
+        differ["softplus_bwd"] += int(softplus_differ(dx, want, nan_as_nan=True).sum())
+        errs["softplus_bwd"] = max(errs["softplus_bwd"], float_err(dx, want))
+
+    for start in range(0, total, chunk):
+        x = softplus_patterns(start, min(chunk, total - start), device)
+        compare(x, (~x.view(torch.int32)).view(torch.float32))
+        del x
+    sweep_s = time.perf_counter() - t0
+    shapes = []
+    for name, shape in SOFTPLUS_SHAPES:
+        x = torch.from_numpy((rng.standard_normal(shape) * 4).astype(np.float32)).to(device)
+        g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+        wide = torch.zeros(*shape[:-1], 3 * shape[-1], device=device)
+        rows = wide[..., shape[-1]:2 * shape[-1]].copy_(x)
+        for layout, t in (("contiguous", x), ("rows", rows)):
+            compare(t, g)
+            shapes.append({"case": name, "layout": layout, "shape": list(shape)})
+    refused = False
+    if torch.device(device).type == "cuda":
+        try:
+            ksoftplus.softplus_fwd(torch.zeros(4, dtype=torch.float64, device=device))
+        except TypeError:
+            refused = True
+    out = {"patterns": total, "differ": differ, "max_abs_err": {k: 0.0 if not differ[k] else errs[k] for k in differ},
+           "sweep_s": sweep_s, "shapes": shapes, "float64_refused": refused}
+    if any(differ.values()) or (torch.device(device).type == "cuda" and not refused):
+        raise AssertionError(f"softplus differs from its plain version: {out}")
+    return out
+
+
+def check_split_products(device, splits=SPLIT_PRODUCTS, expert_splits=EXPERT_SPLITS) -> dict:
+    """`parallel.block_of_product` against the whole product's block on
+    `device`, for each rank of each split of `splits` (bf16), in the four
+    forms of the model axis's five split products: `x @ w` (the column-
+    parallel forward, and the row-parallel one on the exchanged weight),
+    `g @ W.T` (the grad of the input of both), `x.T @ g` (the column-
+    parallel weight grad) and `h.T @ g` (the row-parallel one); the width
+    each block is computed at (its own where the card sums it as the whole
+    product, else wider: `_exact_width`), and whether the plain block
+    product equals the whole product's block with
+    `allow_bf16_reduced_precision_reduction` off (as the model runs) and on.
+    Then, for the record, whether an expert einsum over a rank's experts
+    equals the whole einsum's (`expert_splits`; not a failure)."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    mm = torch.backends.cuda.matmul
+    old = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    rows, unequal = [], []
+    try:
+        for name, m, k, total, parts in splits:
+            def draw(*shape):
+                return torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
+
+            x, w, wt, g = draw(m, k), draw(k, total), draw(k, total), draw(m, total)
+            n, kn = total // parts, k // parts
+            for index in range(parts):
+                cols, krows = slice(index * n, (index + 1) * n), slice(index * kn, (index + 1) * kn)
+                forms = (("x @ w", (x @ w)[:, cols], x, w[:, cols].contiguous(), total, False),
+                         ("g @ W.T", (g @ wt.T)[:, krows], g, wt[krows].contiguous().T, k, False),
+                         ("x.T @ g", (x.T @ g)[:, cols], x.T, g[:, cols].contiguous(), total, False),
+                         ("h.T @ g", (x.T @ g)[krows], x[:, krows].contiguous().T, g, k, True))
+                for form, want, a, b, whole, by_rows in forms:
+                    got = dparallel.block_of_product(a, b, whole, index, rows=by_rows)
+                    mm.allow_bf16_reduced_precision_reduction = True
+                    own_reduced = bool(torch.equal(a @ b, want))
+                    mm.allow_bf16_reduced_precision_reduction = False
+                    row = {"split": name, "form": form, "rank": index,
+                           "block": (a if by_rows else b).shape[0 if by_rows else -1], "whole": whole,
+                           "width": dparallel._exact_width(a, b, whole, index, by_rows),
+                           "equal": bool(torch.equal(got, want)), "plain_block_equal": bool(torch.equal(a @ b, want)),
+                           "plain_block_equal_reduced_precision_allowed": own_reduced}
+                    rows.append(row)
+                    if not row["equal"]:
+                        unequal.append(row)
+        experts = []
+        for name, e, c, d, f, parts in expert_splits:
+            buf = torch.randn(e, c, d, generator=gen, device=device).to(torch.bfloat16)
+            w = torch.randn(e, d, f, generator=gen, device=device).to(torch.bfloat16)
+            whole = torch.einsum("ecd,edf->ecf", buf, w)
+            per = e // parts
+            experts.append({"split": name, "shape": [e, c, d, f], "ranks": parts, "equal_by_rank": [
+                bool(torch.equal(torch.einsum("ecd,edf->ecf", buf[i * per:(i + 1) * per].contiguous(),
+                                              w[i * per:(i + 1) * per].contiguous()), whole[i * per:(i + 1) * per]))
+                for i in range(parts)]})
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = old
+    widths = collections.Counter((r["split"], r["form"], r["block"], r["width"]) for r in rows)
+    out = {"cases": len(rows), "unequal": unequal, "rows": rows, "expert_einsums": experts,
+           "widths": [{"split": a, "form": b, "block": c, "width": d, "ranks": v} for (a, b, c, d), v in widths.items()]}
+    if unequal:
+        raise AssertionError(f"block_of_product differs from the whole product's block: {unequal}")
     return out
 
 
@@ -1010,6 +1175,44 @@ def time_silu(rng, device, names=SILU_TIMED) -> dict:
     return out
 
 
+def time_softplus(device) -> dict:
+    """Per-launch times of `softplus_fwd` and `softplus_bwd` at
+    `SOFTPLUS_SHAPES` (f32), cold (a ring of inputs larger than L2, drawn on
+    the card), beside the bound (the larger of the bytes at 3.35 TB/s, each
+    input read and the output written once, and `SOFTPLUS_FLOPS` at the f32
+    rate), the plain version and one PyTorch call of the same function that
+    rounds otherwise: `F.softplus` and `aten.softplus_backward`."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out = {}
+    for name, shape in SOFTPLUS_SHAPES:
+        n = int(np.prod(shape))
+        ring = max(2, -(-2 * L2_BYTES // (4 * n)) + 1)
+        x = torch.randn(ring, *shape, generator=gen, device=device) * 4
+        y, g = ksoftplus.softplus_fwd_plain(x), torch.randn(ring, *shape, generator=gen, device=device)
+        it = itertools.count()
+        calls = {"softplus_fwd": (lambda: ksoftplus.softplus_fwd(x[next(it) % ring]),
+                                  lambda: ksoftplus.softplus_fwd_plain(x[0]),
+                                  lambda: torch.nn.functional.softplus(x[next(it) % ring]), 2 * 4 * n,
+                                  "F.softplus"),
+                 "softplus_bwd": (lambda: ksoftplus.softplus_bwd(x[next(it) % ring], y[next(it) % ring],
+                                                                 g[next(it) % ring]),
+                                  lambda: ksoftplus.softplus_bwd_plain(x[0], y[0], g[0]),
+                                  lambda: torch.ops.aten.softplus_backward(g[next(it) % ring], x[next(it) % ring],
+                                                                           1.0, 20.0), 4 * 4 * n,
+                                  "aten.softplus_backward")}
+        rows = {}
+        for kname, (kernel, plain, library, nbytes, call) in calls.items():
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = SOFTPLUS_FLOPS[kname] * n / FP32_FLOPS * 1e3
+            rows[kname] = {**time_ms(kernel, 50), "plain_ms": time_ms(plain, 3, reps=3, warmup=1)["ms"],
+                           "library_ms": time_ms(library, 50)["ms"], "bound_ms": max(bytes_ms, ops_ms),
+                           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes,
+                           "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "elements": n, "library_call": call}
+        out[name] = {"shape": list(shape), "ring": ring, **rows}
+        del x, y, g
+    return out
+
+
 def time_polymul(rng, device, batch: int, n: int, sm_mhz: float, tile: int = TILE) -> dict:
     """`polymul_ntt` per call, beside the sum of its launches' bounds."""
     ctx = ntt_core.make_context(mm.DEFAULT_Q, n)
@@ -1260,7 +1463,7 @@ def drive_lm_serve(arch: str, batch: int, prompt_len: int, gen: int, device, see
         steps = res["step_ms"]
         out.update(decode_ms_per_token=float(np.median(steps)), decode_ms_spread=[min(steps), max(steps)],
                    peak_mib=torch.cuda.max_memory_allocated() / 2**20)
-    if lm_launch_fault(launches, device, backward=False):
+    if lm_launch_fault(launches, device, backward=False, cfg=cfg):
         raise AssertionError(f"{arch}: the LM path launched {launches}")
     with torch.inference_mode():  # prefill again, warm: serve's first call pays the libraries' set-up
         _sync(device)
@@ -1581,15 +1784,18 @@ def time_fold(rng, device) -> dict:
 
 
 def port_launches() -> dict:
-    """Launches so far of every kernel of the port, the chain's and silu's included."""
-    return {**kernels.launch_counts(), **kfold.LAUNCHES, **ksilu.LAUNCHES}
+    """Launches so far of every kernel of the port, the chain's, silu's and softplus's included."""
+    return {**kernels.launch_counts(), **kfold.LAUNCHES, **ksilu.LAUNCHES, **ksoftplus.LAUNCHES}
 
 
-def lm_launch_fault(launches: dict, device, backward: bool) -> bool:
+def lm_launch_fault(launches: dict, device, backward: bool, cfg) -> bool:
     """Whether an LM path's launch counts are wrong: on the card it launches
-    `silu_fwd` (and `silu_bwd` where it takes grads) and no other kernel of
-    the port; on the CPU no kernel at all."""
+    `silu_fwd` (and `silu_bwd` where it takes grads), `softplus_fwd` (and
+    `softplus_bwd`) where `cfg` has SSD mixers, and no other kernel of the
+    port; on the CPU no kernel at all."""
     lm = {"silu_fwd", "silu_bwd"} if backward else {"silu_fwd"}
+    if any(mixer == "mamba" for mixer, _ in cfg.pattern()):
+        lm |= {"softplus_fwd", "softplus_bwd"} if backward else {"softplus_fwd"}
     on_card = torch.device(device).type == "cuda"
     return any((v > 0) != (on_card and k in lm) for k, v in launches.items())
 
@@ -1670,7 +1876,7 @@ def drive_train_steps(arch: str, moments: str, device, batch: int = TRAIN_BATCH,
         torch.cuda.empty_cache()
     finite = all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows)
     falling = np.mean(losses[-3:]) < np.mean(losses[:3])
-    if not finite or not falling or lm_launch_fault(launches, device, backward=True):
+    if not finite or not falling or lm_launch_fault(launches, device, backward=True, cfg=cfg):
         raise AssertionError(f"{arch}: train steps finite {finite}, falling {falling}, launches {launches}: {rows}")
     return out
 
@@ -1904,7 +2110,7 @@ def drive_dist_step(device, arch: str = DIST_ARCH, moments: str = DIST_MOMENTS, 
     del params, opt_state, step_fn
     free()
     if (equal["unequal_leaves"] or not all(equal[k] for k in ("loss", "aux", "grad_norm", "lr"))
-            or lm_launch_fault(launches, device, backward=True)):
+            or lm_launch_fault(launches, device, backward=True, cfg=cfg)):
         raise AssertionError(f"dist: the sharded step differs from the unsharded one: {equal}, launches {launches}")
     if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows):
         raise AssertionError(f"dist: non-finite steps {rows}")
@@ -2009,7 +2215,8 @@ def drive_dist_serve(device, arch: str, batch: int, prompt_len: int, gen: int, r
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    if not tokens or unequal_logits or unequal_caches or lm_launch_fault(launches, device, backward=False) or not finite:
+    if (not tokens or unequal_logits or unequal_caches or not finite
+            or lm_launch_fault(launches, device, backward=False, cfg=cfg)):
         raise AssertionError(f"dist serve {arch}: the sharded steps differ from the unsharded ones: {equal}, "
                              f"finite {finite}, launches {launches}")
     return out
@@ -2115,6 +2322,9 @@ def main() -> int:
     emit({"phase": "check", **checked})
     silu_checked = check_silu(rng, device)
     emit({"phase": "check", "part": "silu", **silu_checked})
+    softplus_checked = check_softplus(rng, device)
+    emit({"phase": "check", "part": "softplus", **softplus_checked})
+    emit({"phase": "check", "part": "split_products", **check_split_products(device)})
 
     main_run = drive_main_path(rng, device)
     launches = main_run["launches"]
@@ -2146,9 +2356,10 @@ def main() -> int:
     polymul = [time_polymul(rng, device, b, n, sm_mhz) for b, n in MAIN_SHAPES]
     rns_timing = time_rns(device, sm_mhz)
     silu_timing = time_silu(rng, device)
+    softplus_timing = time_softplus(device)
     power = nvidia_smi("name,power.limit,power.draw,clocks.sm,temperature.gpu")
     emit({"phase": "timing", "card": smi, "kernels": timing, "polymul_ntt": polymul,
-          "rns": rns_timing, "silu": silu_timing, "nvidia_smi_after": power})
+          "rns": rns_timing, "silu": silu_timing, "softplus": softplus_timing, "nvidia_smi_after": power})
 
     # phase 9: the LM serving path, then the fastpath chain
     t_lm = time.perf_counter()
@@ -2260,6 +2471,21 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "library_call": rec["library_call"],
             "shape": silu_timing[SILU_TIMED[0]]["shape"],
+        })
+    for kname, (source, replaces) in SOFTPLUS_INFO.items():
+        rec = softplus_timing[SOFTPLUS_SHAPES[0][0]][kname]
+        by_path = {"lm serve": sum(r["launches"][kname] for r in lm_serves),
+                   "train": sum(r["launches"][kname] for r in train_runs[:len(TRAIN_FULL)]),
+                   "train loop": train_runs[-1]["launches"][kname],
+                   "dist": sum(r["launches"][kname] for r in (dist_run, moe_run, *mixer_runs, *serve_runs))}
+        rows.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": by_path["lm serve"] + by_path["train"],
+            "max_abs_err": softplus_checked["max_abs_err"][kname], "launches_by_path": by_path,
+            "bit_exact": softplus_checked["differ"][kname] == 0, "patterns_checked": softplus_checked["patterns"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"], "library_call": rec["library_call"],
+            "shape": softplus_timing[SOFTPLUS_SHAPES[0][0]]["shape"],
         })
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -61,6 +61,7 @@ import math
 
 import torch
 import torch.distributed._functional_collectives as funcol
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.distributed import sharding as shd
 
@@ -328,60 +329,166 @@ def _exchange(w: torch.Tensor, parts: int, group, rows: bool) -> torch.Tensor:
     return got.transpose(0, 1).reshape(k // parts, n * parts) if rows else got.reshape(k * parts, n // parts)
 
 
+def _place(block: torch.Tensor, dim: int, size: int, start: int) -> torch.Tensor:
+    """2-D `block` at `start` along `dim` in a zero operand `size` long
+    there, laid out as `block` is: row-major, or (where its rows are the
+    faster dim, as a transposed view's) the transpose of a row-major one."""
+    shape = list(block.shape)
+    shape[dim] = size
+    if block.stride(0) < block.stride(1):
+        out = block.new_zeros(shape[::-1]).t()
+    else:
+        out = block.new_zeros(shape)
+    out.narrow(dim, start, block.shape[dim]).copy_(block)
+    return out
+
+
+def _widths(n: int, total: int) -> list:
+    """The widths a block of `n` may be computed at, narrowest first: `n`,
+    `n` rounded up to 128 and to 256 where below `total`, and `total`."""
+    return sorted({w for w in (n, -(-n // 128) * 128, -(-n // 256) * 256) if w < total} | {total})
+
+
+def _block_at(a: torch.Tensor, b: torch.Tensor, total: int, index: int, rows: bool, width: int) -> torch.Tensor:
+    """The block of `a @ b` (see `block_of_product`) computed with the
+    block's operand widened to `width`: at its own place where that is
+    `total` (the whole product), else first."""
+    dim = 0 if rows else -1
+    n = (a if rows else b).shape[dim]
+    start = index * n if width == total else 0
+    if width != n:
+        if rows:
+            a = _place(a, 0, width, start)
+        else:
+            b = _place(b, -1, width, start)
+    return (a @ b).narrow(dim, start, n)
+
+
+#: {(device, the operands' dtype, shapes and strides, total, index, rows,
+#: cuBLAS's bf16 reduction flag): the narrowest width at which cuBLAS (or
+#: the CPU's BLAS) gives a block the whole product's bits}, found once per
+#: process by `_exact_width`.
+_EXACT_WIDTH: dict = {}
+
+
+def _exact_width(a: torch.Tensor, b: torch.Tensor, total: int, index: int, rows: bool) -> int:
+    """The narrowest of `_widths` at which the block equals the whole
+    product's, probed once per key (`_probe_width`)."""
+    key = (str(a.device), a.dtype, tuple(a.shape), a.stride(), tuple(b.shape), b.stride(), total, index, rows,
+           torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    width = _EXACT_WIDTH.get(key)
+    if width is None:
+        with torch.no_grad(), _disable_current_modes():  # a one-time probe, not the step's work: no counter sees it
+            width = _probe_width(a, b, total, index, rows)
+        _EXACT_WIDTH[key] = width
+    return width
+
+
+def _probe_width(a: torch.Tensor, b: torch.Tensor, total: int, index: int, rows: bool) -> int:
+    """The narrowest width whose block equals the whole product's on two
+    draws of operands of the same shapes and layouts: normal values, and
+    values that cancel (the second half of the contracted dim the first
+    half's products negated, at exponents from 2^-12 to 2^12), so that each
+    output is the rounding residue of its f32 sum and any other order of
+    summing shows in the bf16 result, as it need not on normal values."""
+    gen = torch.Generator(device=a.device).manual_seed(0)
+    k = a.shape[-1]
+    draws = []
+    for cancel in (False, True):
+        pa, pb = (torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device).normal_(generator=gen)
+                  for t in (a, b))
+        if cancel and k > 1:
+            scale = torch.exp2(torch.randint(-12, 13, pa.shape, generator=gen, device=a.device).to(pa.dtype))
+            pa.mul_(scale)
+            half = k // 2
+            pa[..., half:2 * half] = pa[..., :half]
+            pb[half:2 * half] = -pb[:half]
+        draws.append((pa, pb))
+    n = (a if rows else b).shape[0 if rows else -1]
+    wholes = [_block_at(pa, pb, total, index, rows, total) for pa, pb in draws]
+    return next(w for w in _widths(n, total)
+                if all(torch.equal(_block_at(pa, pb, total, index, rows, w), whole)
+                       for (pa, pb), whole in zip(draws, wholes)))
+
+
+def block_of_product(a: torch.Tensor, b: torch.Tensor, total: int, index: int, rows: bool = False) -> torch.Tensor:
+    """This rank's block of one device's `a @ b`, bit for bit: `b` (2-D)
+    holds run `index` of the whole right operand's `total` columns, and the
+    block is those columns of the product; with `rows`, `a` (2-D) holds run
+    `index` of the whole left operand's `total` rows, and the block is those
+    rows.  cuBLAS picks its kernel, and with it the order in which an
+    element's products are summed, by the shapes (jamba's 145 of 580
+    in-projection columns sum otherwise than the 580), so the block is
+    computed at the narrowest width at which it holds the whole product's
+    bits (`_exact_width`): its own where the kernels agree, else its operand
+    widened with zeros (to the whole size at its place, the whole product's
+    work, where nothing narrower agrees).  A meta tensor (the dry-run's
+    shapes) takes its own width.  Contiguous."""
+    width = (a if rows else b).shape[0 if rows else -1]
+    if a.device.type != "meta":
+        width = _exact_width(a, b, total, index, rows)
+    return _block_at(a, b, total, index, rows, width).contiguous()
+
+
 class _ColumnParallel(torch.autograd.Function):
-    """`x @ w` for each of `ws` (this rank's column blocks) on a replicated
-    `x`: the forward as on one device.  The backward computes each element
-    of each projection's grad of `x` whole on one rank, as one device's
-    matmul does (the output grads all-gathered, the weights exchanged to row
-    blocks, this rank's columns of the grad, all-gathered), and adds the
+    """`x @ w` for each of `ws` (this rank's column blocks, run `index`) on
+    a replicated `x`: each block as one device's whole product holds it
+    (`block_of_product`).  The backward computes each element of each
+    projection's grad of `x` whole on one rank, as one device's matmul does
+    (the output grads all-gathered, the weights exchanged to row blocks,
+    this rank's columns of the grad, all-gathered), and adds the
     projections' grads in the order autograd adds them on one device (the
     last use first)."""
 
     @staticmethod
-    def forward(ctx, x, group, parts, *ws):
+    def forward(ctx, x, group, parts, index, *ws):
         ctx.save_for_backward(x, *ws)
-        ctx.group, ctx.parts = group, parts
-        return tuple(x @ w for w in ws)
+        ctx.group, ctx.parts, ctx.index = group, parts, index
+        return tuple(block_of_product(x, w, w.shape[-1] * parts, index) for w in ws)
 
     @staticmethod
     def backward(ctx, *gs):
         x, *ws = ctx.saved_tensors
-        part = [_ag(g, -1, ctx.group) @ _exchange(w, ctx.parts, ctx.group, rows=True).T for g, w in zip(gs, ws)]
+        k, index = x.shape[-1], ctx.index
+        part = [block_of_product(_ag(g, -1, ctx.group), _exchange(w, ctx.parts, ctx.group, rows=True).T, k, index)
+                for g, w in zip(gs, ws)]
         gx = part[-1]
         for p in reversed(part[:-1]):
             gx = gx + p
-        x2 = x.reshape(-1, x.shape[-1])
-        return (_ag(gx, -1, ctx.group), None, None, *(x2.T @ g.reshape(-1, g.shape[-1]) for g in gs))
+        x2 = x.reshape(-1, k)
+        return (_ag(gx, -1, ctx.group), None, None, None,
+                *(block_of_product(x2.T, g.reshape(-1, g.shape[-1]), g.shape[-1] * ctx.parts, index) for g in gs))
 
 
 class _RowParallel(torch.autograd.Function):
-    """`h @ w` for `h`'s columns and `w`'s rows split over `model`, each
-    output element computed whole on one rank, as one device computes it:
-    `h` all-gathered, `w` exchanged (all-to-all) from row blocks to column
-    blocks, this rank's output columns, all-gathered.  (Partial products
-    summed over `model` would round some elements of the output otherwise
-    than one device's matmul does.)  The backward is one device's bf16
-    matmul backward on this rank's row block (the output's grad is
-    replicated).  With `index`, `h` is whole (replicated) and this rank's
-    columns are chunk `index`: no gather in the forward, and the grad of
-    `h` comes back whole (its chunks all-gathered)."""
+    """`h @ w` for `h`'s columns and `w`'s rows split over `model` (this
+    rank's are run `index`), each output element computed whole on one
+    rank, as one device computes it: `h` all-gathered, `w` exchanged
+    (all-to-all) from row blocks to column blocks, this rank's output
+    columns (`block_of_product`), all-gathered.  (Partial products summed
+    over `model` would round some elements of the output otherwise than
+    one device's matmul does.)  The backward is one device's bf16 matmul
+    backward, this rank's blocks of it (the output's grad is replicated).
+    With `whole`, `h` is whole (replicated): no gather in the forward, and
+    the grad of `h` comes back whole (its chunks all-gathered)."""
 
     @staticmethod
-    def forward(ctx, h, w, group, parts, index):
-        full = h if index is not None else _ag(h, -1, group)
-        if index is not None:
-            n = h.shape[-1] // parts
-            h = h.narrow(-1, index * n, n)
+    def forward(ctx, h, w, group, parts, index, whole):
+        full = h if whole else _ag(h, -1, group)
+        k = full.shape[-1]
+        if whole:
+            h = h.narrow(-1, index * (k // parts), k // parts)
         ctx.save_for_backward(h, w)
-        ctx.group, ctx.whole = group, index is not None
-        return _ag(full @ _exchange(w, parts, group, rows=False), -1, group)
+        ctx.group, ctx.whole, ctx.index, ctx.k = group, whole, index, k
+        return _ag(block_of_product(full, _exchange(w, parts, group, rows=False), w.shape[-1], index), -1, group)
 
     @staticmethod
     def backward(ctx, g):
         h, w = ctx.saved_tensors
         g2 = g.reshape(-1, g.shape[-1])
-        gh = (g2 @ w.T).reshape(h.shape)
-        return (_ag(gh, -1, ctx.group) if ctx.whole else gh), h.reshape(-1, h.shape[-1]).T @ g2, None, None, None
+        gh = block_of_product(g2, w.T, ctx.k, ctx.index).reshape(h.shape)
+        gw = block_of_product(h.reshape(-1, h.shape[-1]).T, g2, ctx.k, ctx.index, rows=True)
+        return (_ag(gh, -1, ctx.group) if ctx.whole else gh), gw, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -434,15 +541,14 @@ def column_parallel(x: torch.Tensor, *ws: torch.Tensor) -> tuple:
     plan = current()
     if plan.model_dim is None:
         return tuple(x @ w for w in ws)
-    return _ColumnParallel.apply(x, plan.group(plan.model_dim), plan.model_size, *ws)
+    return _ColumnParallel.apply(x, plan.group(plan.model_dim), plan.model_size, plan.model_rank, *ws)
 
 
 def row_parallel(h: torch.Tensor, w: torch.Tensor, whole: bool = False) -> torch.Tensor:
     """`h @ w` (bf16, replicated over `model`), `w`'s rows split over it;
     `h` this rank's columns, or with `whole` all of them, replicated."""
     plan = current()
-    return _RowParallel.apply(h, w, plan.group(plan.model_dim), plan.model_size,
-                              plan.model_rank if whole else None)
+    return _RowParallel.apply(h, w, plan.group(plan.model_dim), plan.model_size, plan.model_rank, whole)
 
 
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:

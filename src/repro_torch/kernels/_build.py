@@ -132,6 +132,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.silu_fwd_launch.restype = I
     lib.silu_bwd_launch.argtypes = [P, L, P, L, P, L, L, I, P]
     lib.silu_bwd_launch.restype = I
+    lib.softplus_fwd_launch.argtypes = [P, L, P, L, L, P]
+    lib.softplus_fwd_launch.restype = I
+    lib.softplus_bwd_launch.argtypes = [P, L, P, L, P, L, P, L, L, P]
+    lib.softplus_bwd_launch.restype = I
     lib.repro_cuda_error_string.argtypes = [I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

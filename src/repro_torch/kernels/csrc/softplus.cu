@@ -1,0 +1,207 @@
+// softplus and its gradient for Hopper (sm_90a), rounded as the reference's CPU rounds them.
+//
+// Replaces no Pallas kernel: the JAX package calls `jax.nn.softplus` on f32 in the SSD
+// mixer (src/repro/models/ssm.py:224, :263): `logaddexp(x, 0)`, that is
+// select(isnan(x), x, max(x, 0) + log1p(exp(-|x|))), and `jax.grad` gives
+// g * exp(ri(x) - ri(out)), ri replacing +inf by 0.  XLA's CPU emits `exp` and `log1p`
+// as polynomials, and LLVM fuses many of their products with the following add into an
+// FMA; the CPU reads subnormal operands as zero and flushes results that are below 2^-126
+// after rounding to 24 bits.  This file repeats that machine code op by op:
+// __fmaf_rn where the CPU has an FMA, __fmul_rn / __fadd_rn / __fdiv_rn where it has a
+// separate op (nvcc never contracts those), and the CPU's flush after every op whose
+// result can be tiny, so the kernels agree bit for bit with the plain torch versions
+// (kernels/softplus.py), which do the same in f32 / f64 IEEE arithmetic.
+//   softplus_fwd:  out = softplus(x)
+//   softplus_bwd:  dx  = g * exp(ri(x) - ri(out))
+//
+// Bound on the H100: ~60 dependent f32 operations an element against 8 bytes (forward)
+// or 16 (backward) moved; the SSD's dt tensors are small (mamba2-780m's train dt is
+// 4 x 512 x 48 f32, 384 KiB; decode's 4 x 48), so a launch is bound by its latency.
+// The design is a plain walk over rows of unit-stride elements with their own row
+// strides (a contiguous tensor is one row), kThreads x kPerThread elements of one row
+// a tile, neighbouring threads on neighbouring elements; the output is dense.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kPerThread = 4;
+constexpr long long kTile = static_cast<long long>(kThreads) * kPerThread;
+constexpr float kMinNormal = 1.17549435e-38f;  // 2^-126
+// The least |v| whose rounding to 24 bits (exponent unbounded) is 2^-126 or more.
+constexpr double kTiny = 0x1.ffffffp-127;  // 2^-126 - 2^-151
+
+__device__ __forceinline__ float f32(uint32_t bits) { return __int_as_float(static_cast<int>(bits)); }
+
+// An operand as the CPU reads it: a subnormal is a zero of its sign.
+__device__ __forceinline__ float daz(float v) { return fabsf(v) < kMinNormal ? copysignf(0.0f, v) : v; }
+
+// r, the rounded result of a product or an FMA whose exact value `exact` carries, as the
+// CPU keeps it: zero of r's sign where the exact value rounded to 24 bits is below 2^-126.
+// Only a result of magnitude <= 2^-126 needs the exact value (a subnormal one is tiny).
+__device__ __forceinline__ float flushed(float r, double exact) {
+  return fabsf(r) <= kMinNormal && fabs(exact) < kTiny ? copysignf(0.0f, r) : r;
+}
+
+__device__ __forceinline__ float cpu_mul(float a, float b) {
+  const float r = __fmul_rn(a, b);
+  return fabsf(r) <= kMinNormal ? flushed(r, __dmul_rn(a, b)) : r;  // the product is exact in f64
+}
+
+__device__ __forceinline__ float cpu_fma(float a, float b, float c) {
+  const float r = __fmaf_rn(a, b, c);
+  return fabsf(r) <= kMinNormal ? flushed(r, __fma_rn(a, b, c)) : r;
+}
+
+// A sum that is subnormal is exact, and flushed.
+__device__ __forceinline__ float cpu_add(float a, float b) {
+  const float r = __fadd_rn(a, b);
+  return fabsf(r) < kMinNormal ? copysignf(0.0f, r) : r;
+}
+
+// XLA's CPU expf: clamp, n = floor(v log2(e) + 1/2) in [-127, 127], a two-constant
+// reduction, a degree-5 polynomial, 2^n in the exponent bits (2^-127 comes out as 0).
+__device__ __forceinline__ float xla_exp(float v) {
+  v = v < f32(0xC2AF999Au) ? f32(0xC2AF999Au) : v;
+  v = v > f32(0x42B1999Au) ? f32(0x42B1999Au) : v;
+  float n = floorf(cpu_fma(v, f32(0x3FB8AA3Bu), 0.5f));
+  n = n < -127.0f ? -127.0f : n;
+  n = n > 127.0f ? 127.0f : n;
+  float r = cpu_fma(-n, f32(0x3F318000u), v);
+  r = cpu_fma(-n, f32(0xB95E8083u), r);
+  float p = cpu_fma(r, f32(0x39506967u), f32(0x3AB743CEu));
+  p = cpu_fma(p, r, f32(0x3C088908u));
+  p = cpu_fma(p, r, f32(0x3D2AA9C1u));
+  p = cpu_fma(p, r, f32(0x3E2AAAAAu));
+  p = cpu_fma(p, r, 0.5f);
+  const float e = cpu_add(cpu_fma(p, cpu_mul(r, r), r), 1.0f);
+  const int ni = n != n ? 0 : __float2int_rz(n);
+  return cpu_mul(e, __int_as_float(static_cast<int>((static_cast<uint32_t>(ni) << 23) + 0x3F800000u)));
+}
+
+// XLA's CPU logf for u in [1, 2] (its cases for u <= 0 and u = inf never arise here).
+__device__ __forceinline__ float xla_log(float u) {
+  u = u > kMinNormal ? u : kMinNormal;
+  const uint32_t bits = static_cast<uint32_t>(__float_as_int(u));
+  const float m = f32((bits & 0x7FFFFFu) | 0x3F000000u);
+  const bool small = m < f32(0x3F3504F3u);
+  const float x = cpu_add(cpu_add(m, -1.0f), small ? m : 0.0f);
+  float e = cpu_add(static_cast<float>(static_cast<int>(bits >> 23) - 127), 1.0f);
+  e = small ? cpu_add(e, -1.0f) : e;
+  const float z = cpu_mul(x, x);
+  const float x3 = cpu_mul(z, x);
+  const float a = cpu_fma(x, cpu_fma(x, f32(0x3D9021BBu), f32(0xBDEBD1B8u)), f32(0x3DEF251Au));
+  const float b = cpu_fma(x, cpu_fma(x, f32(0xBDFE5D4Fu), f32(0x3E11E9BFu)), f32(0xBE2AAE50u));
+  const float c = cpu_fma(x, cpu_fma(x, f32(0x3E4CCEACu), f32(0xBE7FFFFCu)), f32(0x3EAAAAAAu));
+  const float y = cpu_fma(x3, cpu_fma(x3, cpu_fma(x3, a, b), c), cpu_mul(e, f32(0xB95E8083u)));
+  return cpu_fma(e, f32(0x3F318000u), cpu_add(cpu_fma(-0.5f, z, x), y));
+}
+
+// XLA's CPU log1p for e in [0, 1]: a rational function below 0.41421357, else logf(1 + e).
+__device__ __forceinline__ float xla_log1p(float e) {
+  const float zero = __fmul_rn(e, 0.0f);
+  float q = cpu_add(zero, 1.0f);
+  q = cpu_fma(e, q, f32(0x417101ADu));
+  q = cpu_fma(e, q, f32(0x42A6185Bu));
+  q = cpu_fma(e, q, f32(0x435DC32Du));
+  q = cpu_fma(e, q, f32(0x439A8CA3u));
+  q = cpu_fma(e, q, f32(0x43586D8Au));
+  q = cpu_fma(e, q, f32(0x42707982u));
+  float p = cpu_add(zero, f32(0x383DE04Bu));
+  p = cpu_fma(e, p, f32(0x3EFF40C5u));
+  p = cpu_fma(e, p, f32(0x40D284FAu));
+  p = cpu_fma(e, p, f32(0x41EF4B9Cu));
+  p = cpu_fma(e, p, f32(0x4273CC76u));
+  p = cpu_fma(e, p, f32(0x426473ADu));
+  p = cpu_fma(e, p, f32(0x41A05101u));
+  const float sq = cpu_mul(e, e);
+  const float near = cpu_add(e, cpu_fma(-0.5f, sq, cpu_mul(cpu_mul(sq, e), __fdiv_rn(p, q))));
+  return fabsf(e) < f32(0x3ED413CDu) ? near : xla_log(cpu_add(e, 1.0f));
+}
+
+__device__ __forceinline__ float softplus_one(float xv) {
+  const float x = daz(xv);
+  const float out = cpu_add(x > 0.0f ? x : 0.0f, xla_log1p(xla_exp(-fabsf(x))));
+  return xv != xv ? xv : out;
+}
+
+__device__ __forceinline__ float pos_inf_as_zero(float v) { return v == __int_as_float(0x7F800000) ? 0.0f : v; }
+
+__device__ __forceinline__ float softplus_grad_one(float x, float out, float g) {
+  const float d = cpu_add(pos_inf_as_zero(daz(x)), -pos_inf_as_zero(out));
+  return cpu_mul(daz(g), xla_exp(d));
+}
+
+// Tile t covers row t / tiles_per_row, columns from (t % tiles_per_row) * kTile.
+__global__ void __launch_bounds__(kThreads)
+    softplus_fwd_kernel(const float* __restrict__ x, long long sx, float* __restrict__ out, long long cols,
+                        long long tiles_per_row, long long tiles) {
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long r = t / tiles_per_row;
+    const long long c0 = (t - r * tiles_per_row) * kTile + threadIdx.x;
+    const float* xr = x + r * sx;
+    float* outr = out + r * cols;
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const long long c = c0 + static_cast<long long>(k) * kThreads;
+      if (c < cols) outr[c] = softplus_one(xr[c]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    softplus_bwd_kernel(const float* __restrict__ x, long long sx, const float* __restrict__ o, long long so,
+                        const float* __restrict__ g, long long sg, float* __restrict__ dx, long long cols,
+                        long long tiles_per_row, long long tiles) {
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long r = t / tiles_per_row;
+    const long long c0 = (t - r * tiles_per_row) * kTile + threadIdx.x;
+    const float* xr = x + r * sx;
+    const float* orow = o + r * so;
+    const float* gr = g + r * sg;
+    float* dxr = dx + r * cols;
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const long long c = c0 + static_cast<long long>(k) * kThreads;
+      if (c < cols) dxr[c] = softplus_grad_one(xr[c], orow[c], gr[c]);
+    }
+  }
+}
+
+// The tiles of rows x cols, and a grid that strides over them past 2^20 blocks.
+bool tiling(long long rows, long long cols, long long* tiles_per_row, long long* tiles, unsigned* grid) {
+  if (rows < 1 || cols < 1) return false;
+  *tiles_per_row = (cols + kTile - 1) / kTile;
+  *tiles = rows * *tiles_per_row;
+  *grid = static_cast<unsigned>(*tiles < (1LL << 20) ? *tiles : (1LL << 20));
+  return true;
+}
+
+}  // namespace
+
+// x: rows of cols f32 elements, row r at x + r * sx (sx >= cols where rows > 1); out dense.
+extern "C" int softplus_fwd_launch(const void* x, long long sx, void* out, long long rows, long long cols,
+                                   void* stream) {
+  long long tiles_per_row, tiles;
+  unsigned grid;
+  if (!tiling(rows, cols, &tiles_per_row, &tiles, &grid) || (rows > 1 && sx < cols))
+    return static_cast<int>(cudaErrorInvalidValue);
+  softplus_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), sx, static_cast<float*>(out), cols, tiles_per_row, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As softplus_fwd_launch, with out's rows at o + r * so and g's at g + r * sg.
+extern "C" int softplus_bwd_launch(const void* x, long long sx, const void* o, long long so, const void* g,
+                                   long long sg, void* dx, long long rows, long long cols, void* stream) {
+  long long tiles_per_row, tiles;
+  unsigned grid;
+  if (!tiling(rows, cols, &tiles_per_row, &tiles, &grid) || (rows > 1 && (sx < cols || so < cols || sg < cols)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  softplus_bwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), sx, static_cast<const float*>(o), so, static_cast<const float*>(g), sg,
+      static_cast<float*>(dx), cols, tiles_per_row, tiles);
+  return static_cast<int>(cudaGetLastError());
+}

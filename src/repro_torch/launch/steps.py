@@ -32,7 +32,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optim import OptConfig, make_optimizer
-from repro_torch.optim.optimizers import square_sum
+from repro_torch.optim.optimizers import block_square_sums, norm_of_partials, norm_runs
 from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 # ---------------------------------------------------------------------------
@@ -189,8 +189,37 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh):
             g = g.div_(torch.tensor(float(dp_size), dtype=g.dtype, device=g.device))
         return g
 
-    def replicas(place) -> int:
-        return math.prod(mesh.size(i) for i, p in enumerate(place) if not p.is_shard())
+    coord = mesh.get_coordinate()
+
+    def norm_blocks(g, place, path, shape):
+        """The leaf's grid of block sums (`optim.global_norm`'s blocks, at
+        the leaf's whole `shape`) with this rank's blocks filled in where it
+        owns them (its coordinate 0 on every mesh dim that replicates the
+        leaf) and zeros elsewhere: summed over the ranks, the grid of the
+        whole leaf, each block from one rank, so exact.  A mesh axis of a
+        power of two up to `optimizers.NORM_RUNS` cuts no block; where
+        another does (3 ranks on a dim of 96), the leaf is gathered whole
+        for its block sums, owned by the rank at the mesh's origin."""
+        runs = norm_runs(path, shape)
+        split = [math.prod(mesh.size(i) for i, p in enumerate(place) if p.is_shard() and p.dim == d)
+                 for d in range(len(shape))]
+        grid = torch.zeros(runs, dtype=torch.float32, device=g.device)
+        if any(r % m for r, m in zip(runs, split)):
+            whole = DTensor.from_local(g, mesh, place, run_check=False).full_tensor()
+            if not any(coord):
+                grid.copy_(block_square_sums(whole, runs))
+            return grid
+        if any(coord[i] for i, p in enumerate(place) if not p.is_shard()):
+            return grid
+        local = grid
+        for d, m in enumerate(split):  # this rank's run along d: its shard index there, mesh dims major to minor
+            index = 0
+            for i, p in enumerate(place):
+                if p.is_shard() and p.dim == d:
+                    index = index * mesh.size(i) + coord[i]
+            local = local.narrow(d, index * (runs[d] // m), runs[d] // m)
+        local.copy_(block_square_sums(g, tuple(r // m for r, m in zip(runs, split))))
+        return grid
 
     def train_step(params, opt_state, batch, step):
         flat_p = leaves(params)
@@ -201,11 +230,10 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, mesh):
         with torch.no_grad():
             local_g = [reduce_grad(g, place) for g, place in zip(leaves(grads), places)]
             del grads
-            sums = []
-            for g, place in zip(local_g, places):  # a leaf replicated r times is summed r times below
-                r = replicas(place)
-                sums.append(square_sum(g) if r == 1 else square_sum(g) / r)
-            norm = torch.sqrt(_all_reduce_sum(torch.sum(torch.stack(sums)), all_groups))
+            grids = [norm_blocks(g, place, path, p.shape)
+                     for g, place, (path, p) in zip(local_g, places, leaves_with_path(params))]
+            parts = _all_reduce_sum(torch.cat([b.reshape(-1) for b in grids]), all_groups)
+            norm = norm_of_partials([parts])
             means = [_sharded_mean(mesh, place) for place in places]
             state, write_back = _aligned_state(opt_state, params, mesh)
             *_, opt_metrics = update(unflatten(params, local_g), state, local, step, norm=norm, means=means)

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import parallel as P
+from repro_torch.kernels.softplus import softplus
 from repro_torch.models.layers import COMPUTE_DTYPE, F32, _he, rmsnorm, rmsnorm_init, silu
 
 #: The mixer's leaves that the sharded step gathers whole over `model`
@@ -316,8 +317,10 @@ def _expand_groups(cfg: ModelConfig, bc):
 
 
 def _softplus(x):
-    """`jax.nn.softplus`: log(1 + exp(x)) as logaddexp(x, 0)."""
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+    """`jax.nn.softplus` of f32 `x`, forward and backward rounded as the
+    reference's CPU rounds them (`kernels.softplus`: the kernels on the
+    card, their plain versions on the CPU)."""
+    return softplus(x)
 
 
 def _ssd_heads(p, cfg: ModelConfig, z, xi, B, C, dt, init_state=None, place=None):

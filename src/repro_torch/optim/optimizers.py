@@ -18,13 +18,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import operator
 from typing import Literal
 
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves, leaves_with_path, tree_map
+from repro_torch.tree import keystr, leaves, leaves_with_path, tree_map
 
 F32 = torch.float32
 #: Values of a leaf that an update or norm takes at once: 2^26 (256 MiB in f32).
@@ -74,14 +75,77 @@ def _scalar(value, device) -> torch.Tensor:
     return torch.as_tensor(value, dtype=F32).to(device)
 
 
-def square_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of squares of one leaf, in f32."""
-    return sum(torch.sum(torch.square(s.to(F32))) for (s,) in _slices(x))
+#: Runs a dim of a leaf is cut into for the clip's norm: gcd(size, NORM_RUNS),
+#: and a block stack's leading dim one run a rep.  A mesh that splits a dim
+#: into m equal shards, m dividing 32 (the production mesh's 16 x 16, 2 pods
+#: stacked over dp: 32), cuts no run.
+NORM_RUNS = 32
+
+
+def _halve(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """`v` with its `dim` halved: element i plus element i + n // 2, an odd
+    last element carried over to the end."""
+    n = v.shape[dim]
+    half = n // 2
+    out = v.narrow(dim, 0, half) + v.narrow(dim, half, half)
+    return torch.cat([out, v.narrow(dim, 2 * half, 1)], dim) if n % 2 else out
+
+
+def pairwise_sum(v: torch.Tensor, dims=(-1,)) -> torch.Tensor:
+    """The sums of `v` over `dims` (each kept, of size 1), last dim first,
+    each by halving (`_halve`) until one element is left: one fixed order
+    of IEEE adds for each output, whatever the count of outputs, their
+    layout or the device (a library reduction picks its order by the
+    shape)."""
+    for d in sorted((d % v.dim() for d in dims), reverse=True):
+        while v.shape[d] > 1:
+            v = _halve(v, d)
+    return v
+
+
+def norm_runs(path, shape) -> tuple:
+    """The runs per dim for the clip's norm of the leaf at `path` (a key
+    path, `tree.leaves_with_path`'s) of `shape`: a leaf of a block stack
+    (its leading dim the reps, which no mesh splits) one run a rep, so that
+    the count of blocks grows with depth as the model's other costs do."""
+    runs = [math.gcd(n, NORM_RUNS) for n in shape]
+    if runs and "blocks" in keystr(path):
+        runs[0] = shape[0]
+    return tuple(runs)
+
+
+def block_square_sums(x: torch.Tensor, runs) -> torch.Tensor:
+    """The f32 squares of `x` summed over each block of the grid that cuts
+    dim d into `runs[d]` equal runs (`pairwise_sum` over a block's dims, on
+    strided views), shape `runs`.  A block's sum does not depend on the
+    other blocks: a shard holding whole blocks gets them as the whole leaf
+    does.  A leaf over `SLICE_ELEMS` values goes as many runs of dim 0 at a
+    time as that holds (at least one)."""
+    if x.dim() == 0:
+        return x.to(F32).square()
+    per_run = x.numel() // runs[0]
+    step = max(1, SLICE_ELEMS // max(per_run, 1))
+    if runs[0] > step:
+        rows = x.shape[0] // runs[0]
+        return torch.cat([block_square_sums(x.narrow(0, i * rows, min(step, runs[0] - i) * rows),
+                                            (min(step, runs[0] - i), *runs[1:])) for i in range(0, runs[0], step)])
+    split = [v for n, r in zip(x.shape, runs) for v in (r, n // r)]
+    return pairwise_sum(x.reshape(split).to(F32).square(), range(1, 2 * x.dim(), 2)).reshape(runs)
+
+
+def norm_of_partials(parts) -> torch.Tensor:
+    """sqrt of the pairwise sum of the leaves' flattened block sums, in
+    leaf order."""
+    return torch.sqrt(pairwise_sum(torch.cat([p.reshape(-1) for p in parts]))[0])
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of the sum of squares, in f32."""
-    return torch.sqrt(torch.sum(torch.stack([square_sum(x) for x in leaves(tree)])))
+    """sqrt of the sum over leaves of the sum of squares, in f32: each
+    leaf's squares summed over the blocks of `norm_runs`, then all the
+    blocks' sums in one fixed order (`norm_of_partials`), so that a sharded
+    step, which sums its shards' blocks and gathers them
+    (`launch.steps.make_sharded_train_step`), gets the same bits."""
+    return norm_of_partials([block_square_sums(x, norm_runs(path, x.shape)) for path, x in leaves_with_path(tree)])
 
 
 def _clip_scale(grads, max_norm, norm=None):

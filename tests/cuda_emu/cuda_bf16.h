@@ -1,9 +1,7 @@
-// The bf16 type and the float intrinsics of `csrc/silu.cu`, for compiling the
-// port's CUDA sources as plain C++20 on a machine without a card
-// (tests/test_torch_emulated.py): a bf16 is the upper half of a float's
-// bits, rounded to nearest even (a NaN kept quiet); the *_rn operations are
-// the host's IEEE float operations, which g++ does not contract on x86-64
-// without -mfma.
+// The bf16 type of `csrc/silu.cu`, for compiling the port's CUDA sources as
+// plain C++20 on a machine without a card (tests/test_torch_emulated.py): a
+// bf16 is the upper half of a float's bits, rounded to nearest even (a NaN
+// kept quiet).  The float intrinsics are in cuda_runtime.h.
 #pragma once
 
 #include <math.h>
@@ -31,8 +29,3 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   return {static_cast<uint16_t>(u >> 16)};
 }
 
-inline float __fadd_rn(float a, float b) { return a + b; }
-inline float __fsub_rn(float a, float b) { return a - b; }
-inline float __fmul_rn(float a, float b) { return a * b; }
-inline float __fdiv_rn(float a, float b) { return a / b; }
-inline float __frcp_rn(float a) { return 1.0f / a; }

@@ -11,7 +11,10 @@
 // streams, events and devices have nothing to do.
 #pragma once
 
+#include <math.h>
+
 #include <barrier>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <thread>
@@ -74,6 +77,28 @@ inline cudaError_t cudaMemcpyAsync(void* dst, const void* src, size_t bytes, cud
 inline cudaError_t cudaStreamSynchronize(cudaStream_t) { return cudaSuccess; }
 inline cudaError_t cudaEventRecord(cudaEvent_t, cudaStream_t) { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated launch error"; }
+
+// The float and double intrinsics: the host's IEEE operations, which g++ does
+// not contract on x86-64 without -mfma; std::fma rounds once, as an FMA does.
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __frcp_rn(float a) { return 1.0f / a; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
+inline int __float2int_rz(float v) { return static_cast<int>(v); }
+inline float __int_as_float(int v) {
+  float f;
+  std::memcpy(&f, &v, sizeof f);
+  return f;
+}
+inline int __float_as_int(float v) {
+  int i;
+  std::memcpy(&i, &v, sizeof i);
+  return i;
+}
 
 template <typename... P, typename... A>
 void emu_launch(void (*kernel)(P...), unsigned grid, int block, size_t smem, cudaStream_t,

@@ -291,3 +291,47 @@ def test_silu_emulated_matches_plain(emu_lib, layout, dtype):
         assert f32_close(y, fwd, fwd.abs()), layout
         assert f32_close(out, bwd, h.abs() * (1 + a.abs())), layout
     assert emu_lib.silu_fwd_launch(a.data_ptr(), cols - 1, y.data_ptr(), 2, cols, code, None) != 0
+
+
+def softplus_case(layout: str, seed: int, values: torch.Tensor | None = None) -> torch.Tensor:
+    """softplus's f32 input: "dense" (the mixer's `dt + dt_bias`), "rows"
+    (a column slice, rows with their own stride) or "patterns" (a strided
+    sweep of f32 bit patterns: every exponent, both signs, subnormals,
+    infinities and NaNs); with `values`, those values in that layout."""
+    rng = np.random.default_rng(seed)
+    if layout == "dense":
+        t = torch.from_numpy((rng.standard_normal((4, 3000)) * 8).astype(np.float32))
+    elif layout == "rows":
+        t = torch.from_numpy((rng.standard_normal((3, 5, 1200)) * 30).astype(np.float32))[..., 50:1100]
+    else:
+        t = torch.from_numpy((np.arange(1 << 18, dtype=np.uint32) * 16411 + seed).view(np.float32))
+    return t if values is None else t.copy_(values)
+
+
+@pytest.mark.parametrize("layout", ["dense", "rows", "patterns"])
+def test_softplus_emulated_matches_plain(emu_lib, layout):
+    """`softplus_fwd` and `softplus_bwd` (`csrc/softplus.cu`) over the
+    layouts the wrapper hands them (`kernels.softplus._layout`: one dense
+    row, or rows with their own strides), bit for bit against the plain
+    versions (the grad's NaNs as NaNs); a row stride shorter than the row is
+    refused."""
+    from repro_torch.kernels import softplus as ksp
+
+    x0 = softplus_case(layout, 7)
+    x, rows, cols, sx = ksp._layout(x0)
+    assert (rows > 1) == (layout == "rows")
+    out = torch.empty(x.shape)
+    assert emu_lib.softplus_fwd_launch(x.data_ptr(), sx, out.data_ptr(), rows, cols, None) == 0
+    want = ksp.softplus_fwd_plain(x)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32)), layout
+    o, so = ksp._like_rows(softplus_case(layout, 9, want), rows, cols)
+    g, sg = ksp._like_rows(softplus_case(layout, 8), rows, cols)
+    if layout != "patterns":
+        g = g / 8 if rows == 1 else g.div_(8)
+    dx = torch.empty(x.shape)
+    assert emu_lib.softplus_bwd_launch(x.data_ptr(), sx, o.data_ptr(), so, g.data_ptr(), sg, dx.data_ptr(), rows,
+                                       cols, None) == 0
+    want = ksp.softplus_bwd_plain(x, o, g)
+    same_bits = dx.view(torch.int32) == want.view(torch.int32)
+    assert bool((same_bits | (dx.isnan() & want.isnan())).all()), layout
+    assert emu_lib.softplus_fwd_launch(x.data_ptr(), cols - 1, out.data_ptr(), 2, cols, None) != 0

@@ -322,3 +322,78 @@ def test_ssd_head_split_is_exact_on_the_card(cuda):
         for runs in (4, 2):
             out = pc.ssd_head_split(arch, runs, cuda, full, batch, seq)
             assert out["exact"], (name, runs, {k: v for k, v in out["tensors"].items() if not v["equal"]})
+
+
+#: softplus's inputs on the card: mamba2-780m's dt at train and decode, and
+#: a ragged column slice read as rows.
+SOFTPLUS_CASES = [((4, 512, 48), None), ((4, 48), None), ((3, 7, 2049), 2000)]
+
+
+@pytest.mark.parametrize("shape,cols", SOFTPLUS_CASES)
+def test_softplus_kernels_match_plain(cuda, shape, cols):
+    """`softplus_fwd` / `softplus_bwd` on the card equal their plain
+    versions on the same inputs bit for bit, one launch each; through the
+    SSD's `_softplus` and autograd too."""
+    from repro_torch.kernels import softplus as ksp
+    from repro_torch.models import ssm
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal(shape) * 8).astype(np.float32)).to(cuda)
+    x = x if cols is None else x[..., :cols]
+    g = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)).to(cuda)
+    before = dict(ksp.LAUNCHES)
+    y = ksp.softplus_fwd(x)
+    dx = ksp.softplus_bwd(x, y, g)
+    torch.cuda.synchronize()
+    assert {k: ksp.LAUNCHES[k] - before[k] for k in before} == {"softplus_fwd": 1, "softplus_bwd": 1}
+    assert torch.equal(y, ksp.softplus_fwd_plain(x)) and torch.equal(dx, ksp.softplus_bwd_plain(x, y, g))
+    t = x.clone().requires_grad_()
+    out = ssm._softplus(t)
+    out.backward(g)
+    assert torch.equal(out.detach(), y) and torch.equal(t.grad, dx)
+
+
+def test_softplus_kernels_on_a_sweep_of_bit_patterns(cuda):
+    """2^24 f32 bit patterns strided over all 2^32 (every exponent, both
+    signs, subnormals, infinities, NaNs), each also a cotangent: the kernels
+    equal their plain versions bit for bit, the grad's NaNs as NaNs.
+    (chip_smoke.py checks all 2^32.)"""
+    from repro_torch.kernels import softplus as ksp
+
+    bits = (torch.arange(1 << 24, dtype=torch.int64, device=cuda) * 255 + 7) % (1 << 32)
+    x = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32).view(torch.float32)
+    g = (~x.view(torch.int32)).view(torch.float32)
+    y, want = ksp.softplus_fwd(x), ksp.softplus_fwd_plain(x)
+    assert torch.equal(y.view(torch.int32), want.view(torch.int32))
+    dx, want = ksp.softplus_bwd(x, y, g), ksp.softplus_bwd_plain(x, y, g)
+    assert bool(((dx.view(torch.int32) == want.view(torch.int32)) | (dx.isnan() & want.isnan())).all())
+
+
+#: (rows, inner, whole width, ranks): jamba's and mamba2's in-projection
+#: splits over 4 ranks, reduced, and mamba2-780m's at full width.
+SPLIT_CASES = [(128, 128, 580, 4), (128, 128, 548, 4), (2048, 1536, 6448, 4), (127, 64, 96, 2)]
+
+
+@pytest.mark.parametrize("m,k,total,parts", SPLIT_CASES)
+def test_block_of_product_is_the_whole_products_block_on_the_card(cuda, m, k, total, parts):
+    """`parallel.block_of_product` on the card equals the whole product's
+    block bit for bit, for every rank, in each form of the model axis's
+    split products (bf16, f32 accumulation as the model runs)."""
+    from repro_torch.distributed import parallel as P
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device=cuda).manual_seed(total)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).to(torch.bfloat16)
+
+    x, w, wt, g = draw(m, k), draw(k, total), draw(k, total), draw(m, total)
+    n, kn = total // parts, k // parts
+    with layers.f32_accumulation():
+        for index in range(parts):
+            cols, rows = slice(index * n, (index + 1) * n), slice(index * kn, (index + 1) * kn)
+            assert torch.equal(P.block_of_product(x, w[:, cols].contiguous(), total, index), (x @ w)[:, cols])
+            assert torch.equal(P.block_of_product(g, wt[rows].contiguous().T, k, index), (g @ wt.T)[:, rows])
+            assert torch.equal(P.block_of_product(x.T, g[:, cols].contiguous(), total, index), (x.T @ g)[:, cols])
+            assert torch.equal(P.block_of_product(x[:, rows].contiguous().T, g, k, index, rows=True),
+                               (x.T @ g)[rows])

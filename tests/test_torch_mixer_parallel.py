@@ -84,11 +84,11 @@ def test_mixers_split_over_model(tmp_path):
     single-device step's matmul flops, and the step equals the
     single-device step on the global batch (`check_step`, grad norm
     included), its loss bit for bit and every leaf's grad shard bit for
-    bit.  No grad is summed over `model` (mamba2's one group of B / C
-    included): the SSD's heads come out of replicated activations through
-    `split_to_model`, whose backward all-gathers each head's grad from its
-    rank.  (The update still differs by ~1e-6 in some cases: the grad
-    norm sums the shards' squares over ranks.)  Two planted wrong SSD steps
+    bit, and so its grad norm (each leaf's squares summed over blocks that
+    no shard cuts).  No grad is summed over `model` (mamba2's one group of
+    B / C included): the SSD's heads come out of replicated activations
+    through `split_to_model`, whose backward all-gathers each head's grad
+    from its rank.  Two planted wrong SSD steps
     fail `TOL_UPDATE`: the heads taken by a plain slice, and the in_proj
     gather's backward summing the ranks' whole grads.  The grouped SSD runs
     where each rank holds whole groups and raises where a group would be
@@ -101,11 +101,59 @@ def test_mixers_split_over_model(tmp_path):
             check_step(case)
             assert case["metrics"]["loss"] == case["single"]["loss"], (arch, case)
             assert not case["unequal_grads"], (arch, case["unequal_grads"])
+            assert case["metrics"]["grad_norm"] == case["single"]["grad_norm"], (arch, case)
         assert set(r["mamba2-780m"]["controls"]) == {"plain_slice", "summed_gather"}
         check_step(r["grouped"])
         assert r["grouped"]["metrics"]["loss"] == r["grouped"]["single"]["loss"], r["grouped"]
         assert "whole groups" in r["grouped_cut"], r["grouped_cut"]
     assert out[0]["mamba2-780m"]["metrics"] == out[1]["mamba2-780m"]["metrics"]
+
+
+MESH_1X4 = COMMON + '''
+def body(rank, world, tmp):
+    case = setup("mamba2-780m", "adamw", 1, 4, tmp)
+    return dict(run(*case), unequal_grads=unequal_grads(*case))
+'''
+
+
+def test_mamba2_on_1x4_equals_one_device(tmp_path):
+    """Reduced mamba2 on a 1 x 4 mesh, one SSD head a rank: every grad
+    shard, the loss and the grad norm (each leaf's squares summed over
+    blocks that no shard cuts, the blocks gathered) equal one device's, and
+    so does the whole AdamW update, bit for bit."""
+    out = run_child(tmp_path, MESH_1X4, world=4)
+    for r in out:
+        assert not r["unequal_grads"], r["unequal_grads"]
+        assert r["metrics"]["loss"] == r["single"]["loss"], r
+        assert r["metrics"]["grad_norm"] == r["single"]["grad_norm"], r
+        assert r["diff"] == 0.0 and r["update_err"] == {"param": 0.0, "state": 0.0}, r
+
+
+MESH_3X1 = COMMON + '''
+def body(rank, world, tmp):
+    from repro_torch.optim.optimizers import norm_runs
+    from repro_torch.tree import leaves_with_path
+
+    case = setup("qwen3-8b", "adamw", 3, 1, tmp, batch=6, d_model=96)
+    cut = [str(p) for p, x in leaves_with_path(case[3])
+           if any(n % 3 == 0 and r % 3 for n, r in zip(x.shape, norm_runs(p, x.shape)))]
+    return dict(run(*case), cut=cut)
+'''
+
+
+def test_a_split_that_cuts_the_norms_blocks(tmp_path):
+    """On a 3 x 1 mesh, reduced qwen3-8b at d_model 96: the FSDP split of
+    96 rows in 3 cuts the clip norm's 32 runs of them, so those leaves are
+    gathered whole for their block sums.  Every rank reports one grad
+    norm, the loss equals one device's on the global batch and the norm is
+    within 1e-3 of its (reading 2.0e-4, as before the blocks: the 3 dp
+    ranks' grads sum otherwise than one device's)."""
+    out = run_child(tmp_path, MESH_3X1, world=3)
+    for r in out:
+        assert r["cut"], r
+        assert r["metrics"]["loss"] == r["single"]["loss"], r
+        assert abs(r["metrics"]["grad_norm"] - r["single"]["grad_norm"]) <= 1e-3 * r["single"]["grad_norm"], r
+    assert len({r["metrics"]["grad_norm"] for r in out}) == 1
 
 
 MESH_1X1 = COMMON + '''

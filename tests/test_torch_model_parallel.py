@@ -452,7 +452,7 @@ def ref_split_weights(tmp_path_factory):
 def test_split_heads_and_kv_groups_are_exact(tmp_path, request, data, model):
     """Where the model split cuts a q head or spreads a kv group over ranks,
     the step equals the single-device step (`check_step`, AdamW, grad-norm
-    bound included), its loss bit for bit on 1 x m, and every leaf's grad
+    bound included), its loss and grad norm bit for bit on 1 x m, and every leaf's grad
     shard bit for bit (`unequal_grads`: on 2 x 2 one device's grads on each
     dp rank's rows, summed over dp as the FSDP gather sums them, and each
     rank's loss one device's on its rows).  Each rank attends its run of
@@ -479,6 +479,7 @@ def test_split_heads_and_kv_groups_are_exact(tmp_path, request, data, model):
             assert not case["unequal_grads"], (name, case["unequal_grads"])
             if data == 1:
                 assert case["metrics"]["loss"] == case["single"]["loss"], (name, case)
+                assert case["metrics"]["grad_norm"] == case["single"]["grad_norm"], (name, case)
             units = batch // data * over.get("num_kv_heads", 2)
             per = -(-units // model)
             mine = min(per, max(units - (rank % model) * per, 0))

@@ -231,7 +231,7 @@ def test_chip_smoke_train_phase_on_cpu():
         rec = cs.drive_train_steps(arch, moments, "cpu", batch=2, seq=32, steps=6, reduced=True)
         assert [r["step"] for r in rec["steps"]] == list(range(1, 7)) and rec["moment_dtype"] == moments
         assert rec["launches"] == {"ntt_tile": 0, "ntt_pair": 0, "modmul": 0, "chain_fold": 0, "silu_fwd": 0,
-                                   "silu_bwd": 0}  # CPU: the plain versions
+                                   "silu_bwd": 0, "softplus_fwd": 0, "softplus_bwd": 0}  # CPU: the plain versions
         assert rec["tokens_per_s"] > 0 and "mfu_vs_bf16_peak" not in rec and "profile" not in rec
     loop = cs.drive_train_loop("cpu")
     assert loop["step_lists"] == [list(range(10)), [10, 11, 12, 10, 11, 12, 13, 14, 15]]
