@@ -16,11 +16,14 @@ Phases, one JSON line each:
               `silu_fwd` / `silu_bwd` (the LM path's silu as the reference
               rounds it) against theirs, bit for bit, at the LM's shapes
               (`SILU_SHAPES`: qwen3-4b's MLP hidden, mamba2-780m's conv
-              output and its gate read where it lies in the projection), an
-              expert path's permuted einsum output and every bf16 value, in
-              bf16 and f32; `softplus_fwd` / `softplus_bwd` (the SSD's
-              softplus as XLA's CPU rounds it) against theirs on all 2^32
-              f32 patterns and at mamba2-780m's dt, contiguous and as rows;
+              output and its gate read where it lies in the projection, a
+              column slice whose start and row stride are not 16-byte
+              aligned), an expert path's permuted einsum output and every
+              bf16 value, in bf16 and f32; `softplus_fwd` / `softplus_bwd` (the
+              SSD's softplus as XLA's CPU rounds it) against theirs on all
+              2^32 f32 patterns (with the count of elements the forward took
+              through the CPU's ops) and at mamba2-780m's dt, contiguous and
+              as rows;
               and part `split_products`: `parallel.block_of_product` against
               the whole product's block for jamba's and mamba2's in-projection
               splits over 4 ranks, with the width each block takes;
@@ -55,9 +58,12 @@ Phases, one JSON line each:
               exists, the whole polymul_ntt, and the RNS ops ct_mul,
               keyswitch, ct_mul_relin and rescale beside their floors; the
               silu kernels at `SILU_TIMED` beside their byte bound,
-              their plain versions and `F.silu` / `aten.silu_backward`; the
-              softplus kernels at `SOFTPLUS_SHAPES` beside theirs and
-              `F.softplus` / `aten.softplus_backward`.
+              their plain versions and `F.silu` / `aten.silu_backward`, the
+              forward's table's build time and the host's enqueue time per
+              call; the softplus kernels at
+              `SOFTPLUS_SHAPES` beside theirs and `F.softplus` /
+              `aten.softplus_backward`; each beside an empty kernel's time
+              at its launch shape (the launch floor).
   9. lm       the LM serving path (`repro_torch.launch.serve`) on the card:
               qwen3-4b (36 layers, d_model 2560, vocab 151936) and
               mamba2-780m served at full size (batch 4, prompt 128, 32
@@ -353,10 +359,13 @@ SOFTPLUS_INFO = {
 #: f32) at train (batch 4 x seq 512) and decode (batch 4); the first is the
 #: kernels' row in the `kernels` line.
 SOFTPLUS_SHAPES = (("mamba2-780m dt train", (4, 512, 48)), ("mamba2-780m dt decode", (4, 48)))
-#: f32 operations an element (an FMA two): forward exp 21, log1p's rational
-#: branch 34 and its log branch 31 (both computed), 2 adds; backward a
-#: subtract, exp 21 and a multiply.
-SOFTPLUS_FLOPS = {"softplus_fwd": 88, "softplus_bwd": 23}
+#: f32 operations an element (an FMA two): forward exp 21 and 2 adds, and
+#: log1p's rational branch 34 where e = exp(-|x|) < 0.41421357 (|x| >
+#: `SOFTPLUS_NEAR_X`), else its log branch 31; backward a subtract, exp 21 and a
+#: multiply.
+SOFTPLUS_FLOPS = {"softplus_fwd": 23, "softplus_bwd": 23}
+SOFTPLUS_BRANCH_FLOPS = (31, 34)
+SOFTPLUS_NEAR_X = 0.8813736
 #: Patterns a chunk of the exhaustive softplus check takes: 2^26 (256 MiB in f32).
 SOFTPLUS_CHUNK = 1 << 26
 #: The split products held against the whole product's block on the card:
@@ -371,13 +380,16 @@ SPLIT_PRODUCTS = (("jamba reduced in_proj", 128, 128, 580, 4), ("mamba2 reduced 
 EXPERT_SPLITS = (("jamba reduced wi", 4, 64, 128, 256, 4), ("qwen3-moe wi", 128, 80, 2048, 768, 2))
 #: silu's inputs on the LM path at full size (batch 4; prompt 128 serving,
 #: seq 512 training): (name, shape of the tensor silu reads, the part of its
-#: last dim it reads (a column slice of a projection) or None).  qwen3-4b's
-#: MLP hidden (d_ff 9728) at decode, prefill and train; mamba2-780m's conv
-#: output (d_inner + 2 G N = 3328) and its gate z, the first 3072 of the
-#: in-projection's 6448 columns, at train and decode.
+#: last dim it reads (a column slice of a projection: its first `cols`
+#: columns, or columns (start, stop)) or None).  qwen3-4b's MLP hidden (d_ff
+#: 9728) at decode, prefill and train; mamba2-780m's conv output (d_inner +
+#: 2 G N = 3328) and its gate z, the first 3072 of the in-projection's 6448
+#: columns, at train and decode; and a slice whose start (5 bf16) and row
+#: stride (3335) are not 16-byte aligned, so that its rows take every phase.
 SILU_SHAPES = (("qwen3-4b mlp decode", (4, 1, 9728), None), ("qwen3-4b mlp prefill", (4, 128, 9728), None),
                ("qwen3-4b mlp train", (4, 512, 9728), None), ("mamba2-780m xbc train", (4, 512, 3328), None),
-               ("mamba2-780m z train", (4, 512, 6448), 3072), ("mamba2-780m z decode", (4, 1, 6448), 3072))
+               ("mamba2-780m z train", (4, 512, 6448), 3072), ("mamba2-780m z decode", (4, 1, 6448), 3072),
+               ("misaligned slice", (4, 64, 3335), (5, 3333)))
 #: The shapes timed (the first is the kernels' row in the `kernels` line).
 SILU_TIMED = ("qwen3-4b mlp train", "mamba2-780m z train", "qwen3-4b mlp decode")
 #: Float32 operations outside the tensor cores, per second (NVIDIA H100 SXM
@@ -560,9 +572,18 @@ def check_kernels(rng, device, shapes=None, tile=TILE) -> dict:
 
 def silu_input(rng, shape, cols, device, dtype=torch.bfloat16) -> torch.Tensor:
     """A draw of `shape` (scale 3, as an MLP's hidden), or its first `cols`
-    columns, read where they lie."""
+    columns (or columns `cols` = (start, stop)), read where they lie."""
     t = torch.from_numpy((rng.standard_normal(shape) * 3).astype(np.float32)).to(device, dtype)
-    return t if cols is None else t[..., :cols]
+    if cols is None:
+        return t
+    start, stop = cols if isinstance(cols, tuple) else (0, cols)
+    return t[..., start:stop]
+
+
+def silu_elements(shape, cols) -> int:
+    """Elements of `silu_input(rng, shape, cols, ...)`."""
+    width = shape[-1] if cols is None else (cols[1] - cols[0] if isinstance(cols, tuple) else cols)
+    return int(np.prod(shape[:-1])) * width
 
 
 def silu_cases(rng, device):
@@ -637,14 +658,18 @@ def check_softplus(rng, device, total: int = 1 << 32, chunk: int = SOFTPLUS_CHUN
     the grad's cotangent the pattern's bitwise complement (so every pattern
     appears as a cotangent too), bit for bit (the grad's NaNs as NaNs); then
     at `SOFTPLUS_SHAPES`, contiguous and as rows of a wider tensor; and a
-    float64 tensor on the card refused.  The launches here are the check's
-    own: the caller resets the counts before the main path."""
+    float64 tensor on the card refused.  On the card the sweep also counts
+    the elements that the forward computed again by the CPU's ops
+    (`flagged`).  The launches here are the check's own: the caller resets
+    the counts before the main path."""
     differ = {name: 0 for name in SOFTPLUS_INFO}
     errs = {name: 0.0 for name in SOFTPLUS_INFO}
+    on_card = torch.device(device).type == "cuda"
+    flagged = torch.zeros(1, dtype=torch.int64, device=device) if on_card else None
     t0 = time.perf_counter()
 
-    def compare(x, g):
-        out = ksoftplus.softplus_fwd(x)
+    def compare(x, g, count=None):
+        out = ksoftplus.softplus_fwd(x, flagged=count)
         want = ksoftplus.softplus_fwd_plain(x)
         bad = softplus_differ(out, want, nan_as_nan=False)
         differ["softplus_fwd"] += int(bad.sum())
@@ -655,7 +680,7 @@ def check_softplus(rng, device, total: int = 1 << 32, chunk: int = SOFTPLUS_CHUN
 
     for start in range(0, total, chunk):
         x = softplus_patterns(start, min(chunk, total - start), device)
-        compare(x, (~x.view(torch.int32)).view(torch.float32))
+        compare(x, (~x.view(torch.int32)).view(torch.float32), flagged)
         del x
     sweep_s = time.perf_counter() - t0
     shapes = []
@@ -674,7 +699,8 @@ def check_softplus(rng, device, total: int = 1 << 32, chunk: int = SOFTPLUS_CHUN
         except TypeError:
             refused = True
     out = {"patterns": total, "differ": differ, "max_abs_err": {k: 0.0 if not differ[k] else errs[k] for k in differ},
-           "sweep_s": sweep_s, "shapes": shapes, "float64_refused": refused}
+           "sweep_s": sweep_s, "flagged": None if flagged is None else int(flagged.item()), "shapes": shapes,
+           "float64_refused": refused}
     if any(differ.values()) or (torch.device(device).type == "cuda" and not refused):
         raise AssertionError(f"softplus differs from its plain version: {out}")
     return out
@@ -1141,18 +1167,35 @@ def time_kernels(rng, device, batch: int, n: int, sm_mhz: float, tile: int = TIL
     return out
 
 
+def silu_launch_shape(a: torch.Tensor) -> tuple[int, int]:
+    """(CTAs, threads) of `silu_fwd` on bf16 `a`: its rows (one where it is
+    contiguous) in tiles of 512 16-byte vectors, 256 threads a CTA."""
+    rows, cols = (1, a.numel()) if a.is_contiguous() else (a.numel() // a.shape[-1], a.shape[-1])
+    return rows * -(-(-(-cols // 8)) // 512), 256
+
+
 def time_silu(rng, device, names=SILU_TIMED) -> dict:
     """Per-launch times of `silu_fwd` and `silu_bwd` at `SILU_SHAPES`' `names`
     (bf16), cold (a ring of inputs larger than L2), beside the bound (the
     larger of the bytes at 3.35 TB/s, each input read and the output written
     once, and `SILU_FLOPS` at the f32 rate), the plain version and one
     PyTorch call of the same function that rounds once: `F.silu` and
-    `aten.silu_backward`."""
+    `aten.silu_backward`; and an empty kernel at `silu_fwd`'s launch shape
+    (`launch_floor_ms`).  `host_ms` is the host's time to enqueue one call.
+    Also the time to build `silu_fwd`'s table on the card, once."""
     out = {}
+    index = torch.device(device).index or 0
+    ksilu._TABLES.pop(index, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ksilu._table(index)
+    torch.cuda.synchronize()
+    out["table_build_ms"] = (time.perf_counter() - t0) * 1e3
+    out["table_bytes"] = ksilu._table(index).numel() * 2
     for name, shape, cols in SILU_SHAPES:
         if name not in names:
             continue
-        n = int(np.prod(shape[:-1])) * (cols or shape[-1])
+        n = silu_elements(shape, cols)
         ring = max(2, -(-2 * L2_BYTES // (2 * n)) + 1)
         a = [silu_input(rng, shape, cols, device) for _ in range(ring)]
         h = [silu_input(rng, x.shape, None, device) for x in a]
@@ -1171,6 +1214,9 @@ def time_silu(rng, device, names=SILU_TIMED) -> dict:
                            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes,
                            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "elements": n,
                            "library_call": "F.silu" if kname == "silu_fwd" else "aten.silu_backward"}
+        blocks, threads = silu_launch_shape(a[0])
+        rows["silu_fwd"]["launch_floor_ms"] = time_ms(lambda: _build.empty_launch(blocks, threads, device), 50)["ms"]
+        rows["silu_fwd"]["launch_shape"] = [blocks, threads]
         out[name] = {"shape": list(shape), "cols": cols, **rows}
     return out
 
@@ -1180,8 +1226,11 @@ def time_softplus(device) -> dict:
     `SOFTPLUS_SHAPES` (f32), cold (a ring of inputs larger than L2, drawn on
     the card), beside the bound (the larger of the bytes at 3.35 TB/s, each
     input read and the output written once, and `SOFTPLUS_FLOPS` at the f32
-    rate), the plain version and one PyTorch call of the same function that
-    rounds otherwise: `F.softplus` and `aten.softplus_backward`."""
+    rate: the forward's log1p branch as each input of the ring selects it),
+    the plain version, one PyTorch call of the same function that rounds
+    otherwise: `F.softplus` and `aten.softplus_backward`, and an empty
+    kernel at the forward's launch shape (`launch_floor_ms`: 128 threads
+    an element a thread)."""
     gen = torch.Generator(device=device).manual_seed(SEED)
     out = {}
     for name, shape in SOFTPLUS_SHAPES:
@@ -1200,14 +1249,20 @@ def time_softplus(device) -> dict:
                                   lambda: torch.ops.aten.softplus_backward(g[next(it) % ring], x[next(it) % ring],
                                                                            1.0, 20.0), 4 * 4 * n,
                                   "aten.softplus_backward")}
+        near = int((x.abs() > SOFTPLUS_NEAR_X).sum())  # the ring's inputs on log1p's rational branch
+        branch_ops = (SOFTPLUS_BRANCH_FLOPS[0] * (x.numel() - near) + SOFTPLUS_BRANCH_FLOPS[1] * near) / ring
         rows = {}
         for kname, (kernel, plain, library, nbytes, call) in calls.items():
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = SOFTPLUS_FLOPS[kname] * n / FP32_FLOPS * 1e3
+            ops = SOFTPLUS_FLOPS[kname] * n + (branch_ops if kname == "softplus_fwd" else 0)
+            ops_ms = ops / FP32_FLOPS * 1e3
             rows[kname] = {**time_ms(kernel, 50), "plain_ms": time_ms(plain, 3, reps=3, warmup=1)["ms"],
                            "library_ms": time_ms(library, 50)["ms"], "bound_ms": max(bytes_ms, ops_ms),
                            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes,
                            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "elements": n, "library_call": call}
+        blocks = -(-n // 128)
+        rows["softplus_fwd"]["launch_floor_ms"] = time_ms(lambda: _build.empty_launch(blocks, 128, device), 50)["ms"]
+        rows["softplus_fwd"]["launch_shape"] = [blocks, 128]
         out[name] = {"shape": list(shape), "ring": ring, **rows}
         del x, y, g
     return out
@@ -2470,7 +2525,7 @@ def main() -> int:
             "launches_by_path": by_path, "bit_exact": silu_checked["max_abs_err"][kname] == 0,
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "library_call": rec["library_call"],
-            "shape": silu_timing[SILU_TIMED[0]]["shape"],
+            "launch_floor_ms": rec.get("launch_floor_ms"), "shape": silu_timing[SILU_TIMED[0]]["shape"],
         })
     for kname, (source, replaces) in SOFTPLUS_INFO.items():
         rec = softplus_timing[SOFTPLUS_SHAPES[0][0]][kname]
@@ -2485,6 +2540,7 @@ def main() -> int:
             "bit_exact": softplus_checked["differ"][kname] == 0, "patterns_checked": softplus_checked["patterns"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "library_call": rec["library_call"],
+            "launch_floor_ms": rec.get("launch_floor_ms"), "flagged_in_sweep": softplus_checked["flagged"],
             "shape": softplus_timing[SOFTPLUS_SHAPES[0][0]]["shape"],
         })
     emit({"kernels": rows})

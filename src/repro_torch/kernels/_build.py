@@ -128,14 +128,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.chain_fold_roundtrip.restype = I
     lib.fold_dadd_probe_launch.argtypes = [P, L, D, D, P]
     lib.fold_dadd_probe_launch.restype = I
-    lib.silu_fwd_launch.argtypes = [P, L, P, L, L, I, P]
+    lib.silu_fwd_launch.argtypes = [P, L, P, L, L, I, P, P]
     lib.silu_fwd_launch.restype = I
+    lib.silu_table_launch.argtypes = [P, P]
+    lib.silu_table_launch.restype = I
     lib.silu_bwd_launch.argtypes = [P, L, P, L, P, L, L, I, P]
     lib.silu_bwd_launch.restype = I
-    lib.softplus_fwd_launch.argtypes = [P, L, P, L, L, P]
+    lib.softplus_fwd_launch.argtypes = [P, L, P, L, L, P, P]
     lib.softplus_fwd_launch.restype = I
     lib.softplus_bwd_launch.argtypes = [P, L, P, L, P, L, P, L, L, P]
     lib.softplus_bwd_launch.restype = I
+    lib.empty_launch.argtypes = [I, I, P]
+    lib.empty_launch.restype = I
     lib.repro_cuda_error_string.argtypes = [I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -182,16 +186,32 @@ def check(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
 
 
+def _index(device) -> int | None:
+    """The card's index of `device` (a card's index, a `torch.device` or a
+    string), None for "cuda" without one."""
+    if isinstance(device, int):
+        return device
+    return (device if isinstance(device, torch.device) else torch.device(device)).index
+
+
 def stream_handle(device) -> int:
-    """The handle of PyTorch's current stream on `device`, for a launch."""
-    device = torch.device(device)
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    return torch._C._cuda_getCurrentRawStream(index)
+    """The handle of PyTorch's current stream on `device` (a card's index,
+    as `Tensor.get_device()` gives it, a `torch.device` or a string), for a
+    launch."""
+    index = _index(device)
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device() if index is None else index)
 
 
 def on_device(device):
-    """A context that makes `device` current for a launch, where it is not."""
-    device = torch.device(device)
-    if device.index is None or device.index == torch.cuda.current_device():
+    """A context that makes `device` (as for `stream_handle`) current for a
+    launch, where it is not."""
+    index = _index(device)
+    if index is None or index == torch.cuda.current_device():
         return contextlib.nullcontext()
-    return torch.cuda.device(device)
+    return torch.cuda.device(index)
+
+
+def empty_launch(blocks: int, threads: int, device) -> None:
+    """An empty kernel of `blocks` CTAs of `threads` on `device`'s current
+    stream: the floor under a launch of that shape."""
+    check(load().empty_launch(blocks, threads, stream_handle(device)), "empty")

@@ -217,18 +217,25 @@ def _like_rows(t: torch.Tensor, rows: int, cols: int):
     return t.contiguous(), cols if rows > 1 else t.numel()
 
 
-def softplus_fwd(x: torch.Tensor) -> torch.Tensor:
-    """softplus(x) as the reference's CPU rounds it, into a fresh dense tensor."""
+def softplus_fwd(x: torch.Tensor, flagged: torch.Tensor | None = None) -> torch.Tensor:
+    """softplus(x) as the reference's CPU rounds it, into a fresh dense
+    tensor.  On the card, `flagged` (one int64 on x's card) gains the count
+    of elements that the kernel computed again by the CPU's ops."""
     _check("x", x)
     if not _on_card(x):
         return softplus_fwd_plain(x)
+    if flagged is not None and (flagged.dtype != torch.int64 or flagged.device != x.device or flagged.numel() != 1):
+        raise ValueError(f"flagged must be one int64 on {x.device}, got {flagged.dtype} {tuple(flagged.shape)} "
+                         f"on {flagged.device}")
     out = torch.empty(x.shape, dtype=F32, device=x.device)
     if x.numel() == 0:
         return out
     x, rows, cols, sx = _layout(x)
-    lib = _build.load()
-    with _build.on_device(x.device):
-        err = lib.softplus_fwd_launch(x.data_ptr(), sx, out.data_ptr(), rows, cols, _build.stream_handle(x.device))
+    index = x.get_device()
+    with _build.on_device(index):
+        err = _build.load().softplus_fwd_launch(x.data_ptr(), sx, out.data_ptr(), rows, cols,
+                                                None if flagged is None else flagged.data_ptr(),
+                                                _build.stream_handle(index))
     _build.check(err, "softplus_fwd")
     LAUNCHES["softplus_fwd"] += 1
     return out

@@ -1,7 +1,7 @@
-"""Two source trees' LM steps on one card, in turns: serving and training.
+"""Two source trees' LM steps, or their LM kernels, on one card, in turns.
 
     python -m repro_torch.launch.compare_trees --tree parent=DIR --tree change=. \\
-        [--order parent,change,change,parent] [--out compare_trees.json]
+        [--part steps|kernels] [--order parent,change,change,parent] [--out compare_trees.json]
 
 Each run is a child interpreter in one tree (its `src` first on the path)
 that imports that tree's own `chip_smoke.py` and drives, on the card, its
@@ -11,8 +11,10 @@ step, the profiler's kernels and busy ms a decode step) and
 kernels and busy ms of one profiled step) for each of `ARCHS`.  The runs go
 in `--order` (by default parent, change, change, parent), one after the
 other on the same card, so that drift of the card shows as a difference
-between a tree's two runs.  Prints one JSON line per run and writes them
-all, with the card's name and power limit, to `--out`.
+between a tree's two runs.  With `--part kernels` a run times the tree's
+silu and softplus kernels instead, through its `chip_smoke.py`'s
+`time_silu` (seeded draws) and `time_softplus`.  Prints one JSON line per
+run and writes them all, with the card's name and power limit, to `--out`.
 """
 from __future__ import annotations
 
@@ -53,10 +55,22 @@ for arch, moments in json.loads(sys.argv[1]):
 print(json.dumps(out))
 """
 
+_KERNELS_CHILD = r"""
+import importlib.util, json, os, sys
+root = os.getcwd()
+sys.path.insert(0, os.path.join(root, "src"))
+spec = importlib.util.spec_from_file_location("chip_smoke_tree", os.path.join(root, "chip_smoke.py"))
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+cs._build.load()
+print(json.dumps({"silu": cs.time_silu(cs.np.random.default_rng(cs.SEED), "cuda"), "softplus": cs.time_softplus("cuda")}))
+"""
 
-def run_tree(path: str, archs=ARCHS) -> dict:
-    """One child run in the tree at `path`: its last stdout line, as JSON."""
-    proc = subprocess.run([sys.executable, "-c", _CHILD, json.dumps(archs)], cwd=path, capture_output=True,
+
+def run_tree(path: str, archs=ARCHS, part: str = "steps") -> dict:
+    """One child run of `part` in the tree at `path`: its last stdout line, as JSON."""
+    code = _CHILD if part == "steps" else _KERNELS_CHILD
+    proc = subprocess.run([sys.executable, "-c", code, json.dumps(archs)], cwd=path, capture_output=True,
                           text=True, timeout=CHILD_TIMEOUT_S)
     if proc.returncode != 0:
         raise RuntimeError(f"run in {path} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
@@ -66,6 +80,7 @@ def run_tree(path: str, archs=ARCHS) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", action="append", required=True, help="NAME=DIR, a checkout with chip_smoke.py")
+    ap.add_argument("--part", choices=("steps", "kernels"), default="steps")
     ap.add_argument("--order", default=None, help="comma-separated names (default: first, second, second, first)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -76,7 +91,7 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     runs = []
     for i, name in enumerate(order):
-        runs.append({"run": i, "tree": name, "path": os.path.abspath(trees[name]), **run_tree(trees[name])})
+        runs.append({"run": i, "tree": name, "path": os.path.abspath(trees[name]), **run_tree(trees[name], part=args.part)})
         print(json.dumps(runs[-1]), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

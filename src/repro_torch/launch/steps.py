@@ -32,7 +32,8 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optim import OptConfig, make_optimizer
-from repro_torch.optim.optimizers import block_square_sums, norm_of_partials, norm_runs
+from repro_torch.optim.optimizers import (block_square_sums, factored_mean, mean_of_runs, mean_runs,
+                                         norm_of_partials, norm_runs, run_sums)
 from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 # ---------------------------------------------------------------------------
@@ -97,17 +98,26 @@ def _all_reduce_sum(x: torch.Tensor, groups) -> torch.Tensor:
 
 def _sharded_mean(mesh, place):
     """Adafactor's `mean(x, dim, keepdim)` over a dim of a param sharded by
-    `place`: the local sum over the ranks that shard that dim, divided by
-    the whole dim; `torch.mean` itself where no rank splits the dim."""
+    `place`, with one device's bits: `optim.factored_mean`'s run sums of
+    this rank's runs, gathered over the ranks that split the dim (the
+    innermost mesh dim first, so that they come in the whole dim's order)
+    and summed in its order; where a split cuts a run (a mesh axis that
+    does not divide `mean_runs`), `x` itself gathered whole over the dim.
+    `factored_mean` itself where no rank splits the dim."""
 
     def mean(x, dim, keepdim=False):
         pdim = x.dim() + dim  # vr's dim -1 is the param's dim -2
-        groups = [mesh.get_group(i) for i, p in enumerate(place) if p.is_shard(pdim) and mesh.size(i) > 1]
-        if not groups:
-            return torch.mean(x, dim, keepdim=keepdim)
-        n = x.shape[dim] * math.prod(g.size() for g in groups)
-        total = _all_reduce_sum(torch.sum(x, dim, keepdim=keepdim), groups)
-        return total / torch.tensor(float(n), dtype=total.dtype, device=total.device)
+        axes = [i for i, p in enumerate(place) if p.is_shard(pdim) and mesh.size(i) > 1]
+        if not axes:
+            return factored_mean(x, dim, keepdim)
+        d, m = dim % x.dim(), math.prod(mesh.size(i) for i in axes)
+        n = x.shape[d] * m
+        runs = mean_runs(n)
+        cut = runs % m != 0
+        part = x if cut else run_sums(x, d, runs // m)
+        for i in reversed(axes):
+            part = parallel._ag(part, d, mesh.get_group(i))
+        return mean_of_runs(run_sums(part, d, runs) if cut else part, d, n, keepdim)
 
     return mean
 

@@ -139,6 +139,39 @@ def norm_of_partials(parts) -> torch.Tensor:
     return torch.sqrt(pairwise_sum(torch.cat([p.reshape(-1) for p in parts]))[0])
 
 
+def mean_runs(n: int) -> int:
+    """Runs a dim of `n` is cut into for Adafactor's factored means:
+    gcd(n, NORM_RUNS), so that a mesh axis of a power of two up to
+    `NORM_RUNS` that splits the dim cuts no run."""
+    return math.gcd(n, NORM_RUNS)
+
+
+def run_sums(x: torch.Tensor, dim: int, runs: int) -> torch.Tensor:
+    """The sums of `x` over `runs` equal runs of `dim` (each a
+    `pairwise_sum`), `dim` then of size `runs`: a run's sum does not depend
+    on the other runs, so a shard holding whole runs gets them as the whole
+    tensor does."""
+    dim %= x.dim()
+    split = x.reshape(*x.shape[:dim], runs, x.shape[dim] // runs, *x.shape[dim + 1:])
+    return pairwise_sum(split, (dim + 1,)).squeeze(dim + 1)
+
+
+def mean_of_runs(sums: torch.Tensor, dim: int, n: int, keepdim: bool = False) -> torch.Tensor:
+    """The mean over `n` values from their runs' sums `sums` along `dim`:
+    the runs summed pairwise, divided by `n`."""
+    total = pairwise_sum(sums, (dim,))
+    total = total if keepdim else total.squeeze(dim)
+    return total / torch.tensor(float(n), dtype=total.dtype, device=total.device)
+
+
+def factored_mean(x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
+    """Adafactor's mean of `x` over `dim`: the sums of `mean_runs` runs, then
+    the runs' sums, each in a fixed pairwise order, so that a sharded step,
+    which gathers each rank's runs (`launch.steps.make_sharded_train_step`),
+    gets the same bits."""
+    return mean_of_runs(run_sums(x, dim, mean_runs(x.shape[dim])), dim % x.dim(), x.shape[dim], keepdim)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of the sum of squares, in f32: each
     leaf's squares summed over the blocks of `norm_runs`, then all the
@@ -217,7 +250,7 @@ def adafactor_init(params, cfg: OptConfig):
     return {"v": tree_map(init, params)}
 
 
-def _adafactor_leaf(g, v, p, scale, lr, cfg: OptConfig, mean=torch.mean) -> None:
+def _adafactor_leaf(g, v, p, scale, lr, cfg: OptConfig, mean=factored_mean) -> None:
     """`mean(x, dim, keepdim=False)`: the factored moments' mean over a dim
     of `p` (or of `vr`, whose dim -1 is `p`'s dim -2)."""
     b2 = cfg.b2
@@ -249,7 +282,7 @@ def _adafactor_update(grads, state, params, step, cfg: OptConfig, norm=None, mea
     lr = schedule(cfg, step)
     scale, gnorm = _clip_scale(grads, cfg.grad_clip, norm)
     flat = leaves_with_path(params)
-    for g, (path, p), mean in zip(leaves(grads), flat, means or [torch.mean] * len(flat)):
+    for g, (path, p), mean in zip(leaves(grads), flat, means or [factored_mean] * len(flat)):
         v = functools.reduce(operator.getitem, path, state["v"])  # the leaf's {"vr", "vc"} or {"v"}
         _adafactor_leaf(g, v, p, scale.to(p.device), lr.to(p.device), cfg, mean)
     return params, state, {"lr": lr, "grad_norm": gnorm}

@@ -29,3 +29,6 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   return {static_cast<uint16_t>(u >> 16)};
 }
 
+
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 v) { return v.bits; }
+inline __nv_bfloat16 __ushort_as_bfloat16(unsigned short v) { return {v}; }

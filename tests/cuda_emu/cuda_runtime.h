@@ -2,17 +2,21 @@
 // plain C++20 on a machine without a card (tests/test_torch_emulated.py).
 //
 // A launch `emu_launch(kernel, grid, block, smem, stream, args...)` runs
-// the CTAs one after another; the threads of a CTA run as std::threads
-// that share one dynamic shared-memory buffer (filled with 0xDEADBEEF, so
-// that a word read before it is written shows in the result), with a
-// std::barrier for __syncthreads().  Device intrinsics become their
-// arithmetic definitions; cudaFuncSetAttribute and cudaGetLastError
+// the CTAs one after another on `block` std::threads, one a thread of the
+// CTA, which share one dynamic shared-memory buffer (filled with
+// 0xDEADBEEF before each CTA, so that a word read before it is written
+// shows in the result), with a
+// std::barrier for __syncthreads() (and an atomic count for
+// __syncthreads_count).  Device intrinsics become their arithmetic
+// definitions; cudaFuncSetAttribute and cudaGetLastError
 // succeed; device and host memory are one, so a copy is a memcpy, and
 // streams, events and devices have nothing to do.
 #pragma once
 
 #include <math.h>
 
+#include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -33,8 +37,22 @@ struct EmuDim {
 inline thread_local EmuDim threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local std::barrier<>* emu_barrier = nullptr;
 inline thread_local uint32_t* emu_shared = nullptr;
+inline thread_local std::atomic<int>* emu_count = nullptr;
 
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+// The count of the CTA's threads whose `pred` is not 0, to each of them.
+inline int __syncthreads_count(int pred) {
+  emu_barrier->arrive_and_wait();  // the last call's count read by every thread
+  emu_count->fetch_add(pred != 0);
+  emu_barrier->arrive_and_wait();
+  const int n = emu_count->load();
+  emu_barrier->arrive_and_wait();
+  if (threadIdx.x == 0) emu_count->store(0);
+  return n;
+}
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
 template <class T>
 inline T __ldg(const T* p) {
   return *p;
@@ -99,25 +117,41 @@ inline int __float_as_int(float v) {
   std::memcpy(&i, &v, sizeof i);
   return i;
 }
+inline float __uint_as_float(uint32_t v) {
+  float f;
+  std::memcpy(&f, &v, sizeof f);
+  return f;
+}
+inline uint32_t __float_as_uint(float v) {
+  uint32_t u;
+  std::memcpy(&u, &v, sizeof u);
+  return u;
+}
 
 template <typename... P, typename... A>
 void emu_launch(void (*kernel)(P...), unsigned grid, int block, size_t smem, cudaStream_t,
                 A... args) {
-  for (unsigned b = 0; b < grid; ++b) {
-    std::vector<uint4> shared(smem / sizeof(uint4) + 1, uint4{0xDEADBEEF, 0xDEADBEEF, 0xDEADBEEF, 0xDEADBEEF});
-    std::barrier<> barrier(block);
-    std::vector<std::thread> threads;
-    for (int t = 0; t < block; ++t) {
-      threads.emplace_back([&, t] {
-        threadIdx.x = t;
+  const uint4 fill{0xDEADBEEF, 0xDEADBEEF, 0xDEADBEEF, 0xDEADBEEF};
+  std::vector<uint4> shared(smem / sizeof(uint4) + 1, fill);
+  std::barrier<> barrier(block);
+  std::atomic<int> count{0};
+  std::vector<std::thread> threads;
+  for (int t = 0; t < block; ++t) {  // one thread a CTA thread, running the CTAs in turn
+    threads.emplace_back([&, t] {
+      threadIdx.x = t;
+      blockDim.x = block;
+      gridDim.x = grid;
+      emu_barrier = &barrier;
+      emu_count = &count;
+      emu_shared = reinterpret_cast<uint32_t*>(shared.data());
+      for (unsigned b = 0; b < grid; ++b) {
         blockIdx.x = b;
-        blockDim.x = block;
-        gridDim.x = grid;
-        emu_barrier = &barrier;
-        emu_shared = reinterpret_cast<uint32_t*>(shared.data());
         kernel(static_cast<P>(args)...);
-      });
-    }
-    for (auto& th : threads) th.join();
+        barrier.arrive_and_wait();  // the CTA done: a fresh shared buffer for the next
+        if (t == 0) std::fill(shared.begin(), shared.end(), fill);
+        barrier.arrive_and_wait();
+      }
+    });
   }
+  for (auto& th : threads) th.join();
 }

@@ -47,6 +47,7 @@ def emu_lib(tmp_path_factory):
         text, launches = re.subn(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\(", r"emu_launch(\1, \2, ", text,
                                  flags=re.S)
         assert launches, f"no launch found in {src.name}"
+        text = text.replace(", )", ")")  # a kernel without arguments
         sources.append(out / (src.stem + ".cpp"))
         sources[-1].write_text(text)
     lib = out / "libemu.so"
@@ -231,8 +232,11 @@ def test_chain_fold_emulated_on_the_fastpath_grid(emu_lib, line):
 
 def silu_case(layout: str, dtype, seed: int) -> torch.Tensor:
     """silu's input in a layout of its callers: "dense" (a matmul's output),
-    "permuted" (an expert path's einsum output), "rows" (a column slice of a
-    projection, the mixer's `z`), or "patterns" (every bf16 value)."""
+    "tail" (a dense one whose length leaves a scalar tail after the 16-byte
+    vectors), "permuted" (an expert path's einsum output), "rows" (a column
+    slice of a projection, the mixer's `z`), "misaligned" (a column slice
+    whose start and row stride are not 16-byte aligned, rows of every
+    phase), or "patterns" (every bf16 value)."""
     rng = np.random.default_rng(seed)
 
     def draw(*shape):
@@ -240,10 +244,14 @@ def silu_case(layout: str, dtype, seed: int) -> torch.Tensor:
 
     if layout == "dense":
         return draw(3, 5000)
+    if layout == "tail":
+        return draw(3, 1667)
     if layout == "permuted":
         return draw(4, 2, 3, 300).permute(1, 0, 2, 3)
     if layout == "rows":
         return draw(2, 7, 2500)[..., 100:2400]
+    if layout == "misaligned":
+        return draw(3, 5, 1003)[..., 3:1000]
     return torch.from_numpy((np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)).to(dtype)
 
 
@@ -261,22 +269,47 @@ def f32_close(got: torch.Tensor, exp: torch.Tensor, scale: torch.Tensor) -> bool
     return torch.equal(got.isnan(), exp.isnan()) and bool((err <= 2.0**-21 * scale.double()[fin] + 2.0**-120).all())
 
 
-@pytest.mark.parametrize("layout", ["dense", "permuted", "rows", "patterns"])
+@pytest.fixture(scope="module")
+def silu_table(emu_lib):
+    """`silu_fwd`'s table, built by the emulated `silu_table_launch`."""
+    table = torch.empty(1 << 16, dtype=torch.bfloat16)
+    assert emu_lib.silu_table_launch(table.data_ptr(), None) == 0
+    return table
+
+
+def test_silu_table_is_every_bf16_value(silu_table):
+    """`silu_fwd`'s table (built by the kernel's exact ops) is
+    `silu_fwd_plain` of every bf16 bit pattern, bit for bit."""
+    from repro_torch.kernels import silu as ksilu
+
+    assert nan_equal(silu_table, ksilu.silu_fwd_plain(silu_case("patterns", torch.bfloat16, 0)))
+
+
+@pytest.mark.parametrize("layout", ["dense", "tail", "permuted", "rows", "misaligned", "patterns"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_silu_emulated_matches_plain(emu_lib, layout, dtype):
+def test_silu_emulated_matches_plain(emu_lib, silu_table, layout, dtype):
     """`silu_fwd` and `silu_bwd` over the walks the wrapper hands them
-    (`kernels.silu._walk`: one dense row, or rows with their own stride;
-    tiles of 2048 meeting a row's end), against the plain versions: bf16
-    bit for bit, f32 by `f32_close`; a row stride shorter than the row is
-    refused."""
+    (`kernels.silu._walk`: one dense row, or rows with their own stride; the
+    forward's 16-byte vectors with a scalar head and tail, stored whole or
+    one by one as the output's phase allows; the backward's tiles of 2048
+    meeting a row's end), against the plain versions: bf16 bit for bit, f32
+    by `f32_close`; a row stride shorter than the row, and bf16 without a
+    table, are refused."""
     from repro_torch.kernels import silu as ksilu
 
     a = silu_case(layout, dtype, 5)
     h = silu_case(layout, dtype, 6) if layout != "patterns" else a.flip(0)
     a, dense, rows, cols, sa, y = ksilu._walk(a)
-    assert dense == (layout != "rows")
+    assert dense == (layout not in ("rows", "misaligned"))
     code = ksilu._DTYPES[dtype]
-    assert emu_lib.silu_fwd_launch(a.data_ptr(), sa, y.data_ptr(), rows, cols, code, None) == 0
+    fwd, bwd = ksilu.silu_fwd_plain(a), ksilu.silu_bwd_plain(a, h)
+    table = silu_table.data_ptr() if dtype == torch.bfloat16 else None
+    assert emu_lib.silu_fwd_launch(a.data_ptr(), sa, y.data_ptr(), rows, cols, code, table, None) == 0
+    if dtype == torch.bfloat16:
+        assert nan_equal(y, fwd), layout
+        assert emu_lib.silu_fwd_launch(a.data_ptr(), sa, y.data_ptr(), rows, cols, code, None, None) != 0
+    else:
+        assert f32_close(y, fwd, fwd.abs()), layout
     if dense:
         h = torch.empty_like(a).copy_(h)
         sh = sa
@@ -284,49 +317,78 @@ def test_silu_emulated_matches_plain(emu_lib, layout, dtype):
         sh = ksilu._rows(h)[1]
     out = torch.empty_like(y)
     assert emu_lib.silu_bwd_launch(a.data_ptr(), sa, h.data_ptr(), sh, out.data_ptr(), rows, cols, code, None) == 0
-    fwd, bwd = ksilu.silu_fwd_plain(a), ksilu.silu_bwd_plain(a, h)
     if dtype == torch.bfloat16:
-        assert nan_equal(y, fwd) and nan_equal(out, bwd), layout
+        assert nan_equal(out, bwd), layout
     else:
-        assert f32_close(y, fwd, fwd.abs()), layout
         assert f32_close(out, bwd, h.abs() * (1 + a.abs())), layout
-    assert emu_lib.silu_fwd_launch(a.data_ptr(), cols - 1, y.data_ptr(), 2, cols, code, None) != 0
+    assert emu_lib.silu_fwd_launch(a.data_ptr(), cols - 1, y.data_ptr(), 2, cols, code, table, None) != 0
+
+
+def test_silu_emulated_misaligned_output(emu_lib, silu_table):
+    """A dense input one element past a 16-byte boundary and an output
+    two past one: the vectors are read whole and stored one by one."""
+    from repro_torch.kernels import silu as ksilu
+
+    a = torch.empty(4001, dtype=torch.bfloat16)[1:].copy_(silu_case("dense", torch.bfloat16, 3).reshape(-1)[:4000])
+    y = torch.empty(4002, dtype=torch.bfloat16)[2:]
+    assert emu_lib.silu_fwd_launch(a.data_ptr(), a.numel(), y.data_ptr(), 1, a.numel(), 0, silu_table.data_ptr(),
+                                   None) == 0
+    assert nan_equal(y, ksilu.silu_fwd_plain(a))
 
 
 def softplus_case(layout: str, seed: int, values: torch.Tensor | None = None) -> torch.Tensor:
     """softplus's f32 input: "dense" (the mixer's `dt + dt_bias`), "rows"
-    (a column slice, rows with their own stride) or "patterns" (a strided
+    (a column slice, rows with their own stride), "patterns" (a strided
     sweep of f32 bit patterns: every exponent, both signs, subnormals,
-    infinities and NaNs); with `values`, those values in that layout."""
+    infinities and NaNs) or "edges" (the elements that take the forward's
+    CPU ops or sit at a branch: subnormals, +-0, +-inf, NaN payloads,
+    inputs whose exp lands at 2^-126, and those around log1p's branch edge
+    e = 0x3ED413CD); with `values`, those values in that layout."""
     rng = np.random.default_rng(seed)
     if layout == "dense":
         t = torch.from_numpy((rng.standard_normal((4, 3000)) * 8).astype(np.float32))
     elif layout == "rows":
         t = torch.from_numpy((rng.standard_normal((3, 5, 1200)) * 30).astype(np.float32))[..., 50:1100]
+    elif layout == "edges":
+        near = lambda v: np.float32(v).view(np.uint32) + np.arange(-40, 41, dtype=np.int64)  # noqa: E731
+        bits = np.concatenate([np.arange(0, 1 << 23, 4099), [0, 0x7F800000, 0x7F800001, 0x7FC00000, 0x7FFFFFFF,
+                                                             0x7FA5A5A5], near(-np.log(np.float32(2.0**-126))),
+                               near(-np.log(np.uint32(0x3ED413CD).view(np.float32))), near(87.0), near(0.5)])
+        bits = np.concatenate([bits, bits | 0x80000000]).astype(np.uint32)
+        t = torch.from_numpy(bits.view(np.float32).copy())
     else:
         t = torch.from_numpy((np.arange(1 << 18, dtype=np.uint32) * 16411 + seed).view(np.float32))
     return t if values is None else t.copy_(values)
 
 
-@pytest.mark.parametrize("layout", ["dense", "rows", "patterns"])
+@pytest.mark.parametrize("layout", ["dense", "rows", "patterns", "edges"])
 def test_softplus_emulated_matches_plain(emu_lib, layout):
     """`softplus_fwd` and `softplus_bwd` (`csrc/softplus.cu`) over the
     layouts the wrapper hands them (`kernels.softplus._layout`: one dense
     row, or rows with their own strides), bit for bit against the plain
-    versions (the grad's NaNs as NaNs); a row stride shorter than the row is
-    refused."""
+    versions (the grad's NaNs as NaNs); the forward with and without its
+    count of elements that took the CPU's ops (of the normal draws those
+    past |x| ~ 28.75, where log1p's e^3 / 3 falls below 2^-126; some of the
+    patterns and edges; the same values either way); a row
+    stride shorter than the row is refused."""
     from repro_torch.kernels import softplus as ksp
 
     x0 = softplus_case(layout, 7)
     x, rows, cols, sx = ksp._layout(x0)
     assert (rows > 1) == (layout == "rows")
-    out = torch.empty(x.shape)
-    assert emu_lib.softplus_fwd_launch(x.data_ptr(), sx, out.data_ptr(), rows, cols, None) == 0
     want = ksp.softplus_fwd_plain(x)
-    assert torch.equal(out.view(torch.int32), want.view(torch.int32)), layout
+    flagged = torch.zeros(1, dtype=torch.int64)
+    for count in (None, flagged.data_ptr()):
+        out = torch.full(x.shape, float("nan"))
+        assert emu_lib.softplus_fwd_launch(x.data_ptr(), sx, out.data_ptr(), rows, cols, count, None) == 0
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32)), (layout, count)
+    if layout in ("dense", "rows"):  # log1p's e^3 / 3 falls below 2^-126 from |x| ~ 28.75 on
+        assert (x.abs() > 29.2).sum() <= flagged.item() <= (x.abs() > 28.7).sum(), flagged
+    else:
+        assert 0 < flagged.item() < x.numel(), flagged
     o, so = ksp._like_rows(softplus_case(layout, 9, want), rows, cols)
     g, sg = ksp._like_rows(softplus_case(layout, 8), rows, cols)
-    if layout != "patterns":
+    if layout not in ("patterns", "edges"):
         g = g / 8 if rows == 1 else g.div_(8)
     dx = torch.empty(x.shape)
     assert emu_lib.softplus_bwd_launch(x.data_ptr(), sx, o.data_ptr(), so, g.data_ptr(), sg, dx.data_ptr(), rows,
@@ -334,4 +396,10 @@ def test_softplus_emulated_matches_plain(emu_lib, layout):
     want = ksp.softplus_bwd_plain(x, o, g)
     same_bits = dx.view(torch.int32) == want.view(torch.int32)
     assert bool((same_bits | (dx.isnan() & want.isnan())).all()), layout
-    assert emu_lib.softplus_fwd_launch(x.data_ptr(), cols - 1, out.data_ptr(), 2, cols, None) != 0
+    assert emu_lib.softplus_fwd_launch(x.data_ptr(), cols - 1, out.data_ptr(), 2, cols, None, None) != 0
+
+
+def test_empty_launch_emulated(emu_lib):
+    """The launch floor's empty kernel runs; a shape of no CTA is refused."""
+    assert emu_lib.empty_launch(3, 128, None) == 0
+    assert emu_lib.empty_launch(0, 128, None) != 0

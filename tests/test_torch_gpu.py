@@ -312,6 +312,22 @@ def test_silu_kernels_on_every_bf16_value(cuda):
         assert torch.equal(got[~nan].view(torch.int16), exp[~nan].view(torch.int16))
 
 
+
+def test_silu_fwd_on_every_bf16_value_and_a_misaligned_slice(cuda):
+    """`silu_fwd` (its table) on every bf16 value, and on a column slice
+    whose start and row stride are not 16-byte aligned (the 16-byte vectors'
+    scalar heads and tails, stores one by one), against the plain version:
+    equal bits where not nan, nan where nan."""
+    from repro_torch.kernels import silu as ks
+
+    x = torch.from_numpy((np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)).to(cuda, torch.bfloat16)
+    sliced = torch.from_numpy((np.random.default_rng(1).standard_normal((4, 64, 3335)) * 3).astype(np.float32))
+    for a in (x, sliced.to(cuda, torch.bfloat16)[..., 5:3333]):
+        got, exp = ks.silu_fwd(a), ks.silu_fwd_plain(a)
+        nan = exp.isnan()
+        assert torch.equal(got.isnan(), nan)
+        assert torch.equal(got[~nan].view(torch.int16), exp[~nan].view(torch.int16))
+
 def test_ssd_head_split_is_exact_on_the_card(cuda):
     """The SSD's heads split into the runs of 4 and 2 ranks on one card,
     forward and backward, equal to the whole call bit for bit

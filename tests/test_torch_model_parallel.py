@@ -492,3 +492,80 @@ def test_split_heads_and_kv_groups_are_exact(tmp_path, request, data, model):
         for i, (path, g) in enumerate(ref_grads):
             key = jax.tree_util.keystr(path)
             assert rel_err(g, torch.from_numpy(got[f"arr_{i}"])) <= grad_tol(key, TOL_GRAD), key
+
+
+# ---------------------------------------------------------------------------
+# (f) Adafactor's factored means over a split dim: exact
+# ---------------------------------------------------------------------------
+
+ADAFACTOR_ARCHS = ("qwen3-8b", "qwen3-moe-30b-a3b")
+
+ADAFACTOR_1XM = COMMON + '''
+def body(rank, world, tmp):
+    import math
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as S
+    from repro_torch.tree import keystr, leaves, leaves_with_path, tree_map
+
+    def summed(mesh, place):
+        """The factored mean as it was: each rank's `torch.sum` all-reduced
+        over the ranks that split the dim, over the whole dim's size."""
+        def mean(x, dim, keepdim=False):
+            groups = [mesh.get_group(i) for i, p in enumerate(place) if p.is_shard(x.dim() + dim) and mesh.size(i) > 1]
+            if not groups:
+                return torch.mean(x, dim, keepdim=keepdim)
+            total = S._all_reduce_sum(torch.sum(x, dim, keepdim=keepdim), groups)
+            return total / torch.tensor(float(x.shape[dim] * math.prod(g.size() for g in groups)))
+        return mean
+
+    def differing(cfg, opt, mesh, p0, s0, local, whole):
+        """The param leaves whose param or optimizer state after the sharded
+        step differs from one device's, and the metrics of both."""
+        fresh = lambda: tree_map(torch.clone, (p0, s0))
+        dp, ds = shd.distribute_tree(fresh(), (shd.param_shardings(mesh, p0), shd.opt_shardings(mesh, s0)))
+        dp, ds, m = S.make_sharded_train_step(cfg, opt, mesh)(dp, ds, local, 1)
+        p1, s1, m1 = S.make_train_step(cfg, opt)(*fresh(), whole, 1)
+        full = lambda x: x.full_tensor() if isinstance(x, DTensor) else x
+        out = set()
+        for tree, (a, b) in (("param", (dp, p1)), ("state", (ds["v"], s1["v"]))):
+            for (path, x), y in zip(leaves_with_path(a), leaves(b)):
+                if not torch.equal(full(x), y):
+                    out.add(keystr(path[:-1] if tree == "state" and path[-1] in ("vr", "vc", "v") else path))
+        return sorted(out), {k: [float(m[k]), float(m1[k])] for k in ("loss", "grad_norm")}
+
+    out = {}
+    for arch in ARCHS:
+        case = setup(arch, "adafactor", 1, MODEL, tmp)
+        leaves_off, metrics = differing(*case)
+        with patched(S, "_sharded_mean", summed):
+            control, _ = differing(*case)
+        out[arch] = {"differ": leaves_off, "metrics": metrics, "control": control,
+                     "unequal_grads": unequal_grads(*case)}
+    return out
+'''
+
+
+@pytest.mark.parametrize("model", [2, 4], ids=["1x2", "1x4"])
+def test_adafactor_on_1xm_equals_one_device(tmp_path, model):
+    """One Adafactor step of reduced qwen3-8b and qwen3-moe on a 1 x m
+    (data, model) mesh: loss and grad norm equal one device's, and every
+    param and state leaf whose grad shards equal one device's
+    (`unequal_grads`) equals its leaf bit for bit: on 1 x 4 all of them;
+    on 1 x 2 the q / k norms' grads differ in their last bits (their weight
+    is shared by the heads the split deals out; AdamW's moments too, ROADMAP
+    queue 3), so only those leaves may.  Each factored mean over a dim the
+    model axis splits is its runs' sums (`optim.factored_mean`), each rank's
+    runs gathered and summed in one device's order
+    (`steps._sharded_mean`).  The control, the mean as it was (each rank's
+    sum all-reduced), puts leaves off whose grads are equal (4.1-4.2e-7 of
+    the update at 1 x 4 on four H100s)."""
+    out = run_child(tmp_path, f"ARCHS = {ADAFACTOR_ARCHS!r}\nMODEL = {model}\n" + ADAFACTOR_1XM, world=model)
+    for r in out:
+        for arch in ADAFACTOR_ARCHS:
+            case = r[arch]
+            unequal = set(case["unequal_grads"])
+            assert set(case["differ"]) <= unequal, (arch, case)
+            assert not unequal or model == 2, (arch, case)
+            assert all(a == b for a, b in case["metrics"].values()), (arch, case)
+            assert set(case["control"]) - unequal, (arch, case)

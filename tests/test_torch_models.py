@@ -259,6 +259,118 @@ def test_mamba_forward_and_decode_match_reference(arch, impl, s):
     assert rel_err(dcj, dct) <= TOL_MAMBA and rel_err(dsj, dst) <= TOL_MAMBA
 
 
+
+#: The mixer at the published `ssm_chunk=256` (reduced width, 2 x 256
+#: tokens), output against the reference's: one bf16 ulp of an element,
+#: set by the out-projection's rounding on the CPU (worst 1.67e-3 mamba2,
+#: 3.73e-3 jamba; `test_ssd_deviations_at_the_published_chunk`).  The
+#: state and the conv cache agree bit for bit.
+TOL_MAMBA_256 = {"mamba2-780m": 3.4e-3, "jamba-1.5-large-398b": 7.5e-3}
+
+
+@pytest.mark.parametrize("arch,impl", [("mamba2-780m", "baseline"), ("mamba2-780m", "grouped"),
+                                       ("jamba-1.5-large-398b", "grouped")])
+def test_mamba_forward_matches_reference_at_the_published_chunk(arch, impl):
+    cfg, ref_cfg, pj, pt = _layer_params(arch, RS.mamba_init, ssm_impl=impl, ssm_chunk=256)
+    rng = np.random.default_rng(11)
+    xj, xt = bf16(rng, (2, 256, 128))
+    yj, (cj, sj) = RS.mamba_forward(pj, ref_cfg, xj)
+    yt, (ct, st) = PS.mamba_forward(pt, cfg, xt)
+    assert rel_err(yj, yt) <= TOL_MAMBA_256[arch]
+    assert rel_err(cj, ct) == 0.0 and rel_err(sj, st) == 0.0
+
+
+def xla_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """`jnp.cumsum` as XLA's CPU computes it in f32 (a `reduce_window`): blocks
+    of 16 from the start, each a left fold, the blocks' totals scanned the
+    same way, then each block's exclusive prefix added."""
+    x = torch.movedim(x, dim, -1)
+    n = x.shape[-1]
+    if n <= 16:
+        out = [x[..., 0]]
+        for i in range(1, n):
+            out.append(out[-1] + x[..., i])
+        return torch.movedim(torch.stack(out, -1), -1, dim)
+    blocks = -(-n // 16)
+    inner = xla_cumsum(torch.cat([x, x.new_zeros(*x.shape[:-1], blocks * 16 - n)], -1)
+                       .reshape(*x.shape[:-1], blocks, 16), -1)
+    totals = xla_cumsum(inner[..., -1], -1)
+    prefix = torch.cat([totals.new_zeros(*totals.shape[:-1], 1), totals[..., :-1]], -1)
+    out = (inner + prefix[..., None]).reshape(*x.shape[:-1], blocks * 16)[..., :n]
+    return torch.movedim(out, -1, dim)
+
+
+def test_ssd_deviations_at_the_published_chunk(monkeypatch):
+    """Where the port's mixer rounds otherwise than the reference on the
+    CPU at `ssm_chunk=256`, each held on the reference's own operands
+    (measured counts of differing elements beside each):
+    - the out-projection, a 256-long bf16 matmul, differs in a few elements
+      (9 of 65,536: 1.67e-3, the mixer's reading); computed in f32 and
+      rounded once it equals XLA's;
+    - the SSD alone (`ssd_chunked`, (1, 256, 4, 16), n 16) differs (3.55e-4):
+      `torch.cumsum` accumulates in f64 on the CPU, XLA in f32 blocks of 16
+      (`xla_cumsum`); with XLA's order the SSD equals the reference bit for
+      bit;
+    - its pairwise bf16 contractions (`einsum3`'s, and the scores): the
+      16-long scores differ in a few elements (3 of 262,144) and none when
+      computed in f32 and rounded once; the 256-long ones none in f32 (in
+      bf16 0 here, 4 of 131,072 on the mixer's own operands); the
+      elementwise products (`L * scores`, `decay * x`) differ only where
+      XLA's CPU flushes a subnormal operand or result to zero.
+    The port keeps torch's matmuls, `torch.cumsum` and bf16 einsums: on the
+    card they round as cuBLAS does, which is neither."""
+    cfg, ref_cfg, pj, pt = _layer_params("mamba2-780m", RS.mamba_init, ssm_chunk=256)
+    rng = np.random.default_rng(11)
+    xj, _ = bf16(rng, (2, 256, 128))
+    walk = {}
+
+    def keep(x, *a, **k):  # the mixer's gated, normed rows as the reference has them
+        walk["normed"] = RL.rmsnorm(x, *a, **k)
+        return walk["normed"]
+
+    with monkeypatch.context() as m:
+        m.setattr(RS, "rmsnorm", keep)
+        RS.mamba_forward(pj, ref_cfg, xj)
+    normed, w = walk["normed"], pj["out_proj"].astype(jnp.bfloat16)
+    want = np.asarray((normed @ w).astype(jnp.float32))
+    got = (to_torch(normed) @ to_torch(w)).float().numpy()
+    once = (to_torch(normed).float() @ to_torch(w).float()).to(torch.bfloat16).float().numpy()
+    assert 0 < (got != want).sum() <= 1e-3 * want.size and (once != want).sum() == 0
+
+    rng = np.random.default_rng(7)
+    (xj, dAj, Bj, Cj), (xt, dAt, Bt, Ct) = _ssd_inputs(rng, 1, 256, 4, 16, 16)
+    yj, fj = RS.ssd_chunked(xj, dAj, Bj, Cj, 256)
+    assert rel_err(yj, PS.ssd_chunked(xt, dAt, Bt, Ct, 256)[0]) > 0
+    with monkeypatch.context() as m:
+        m.setattr(PS.torch, "cumsum", xla_cumsum)
+        yt, ft = PS.ssd_chunked(xt, dAt, Bt, Ct, 256)
+    assert rel_err(yj, yt) == 0.0 and rel_err(fj, ft) == 0.0
+
+    def differ(sub, *ops):
+        """(elements where torch's bf16 einsum differs from jnp's, where its
+        f32 einsum rounded once does, where the former are flushes)."""
+        want = np.asarray(jnp.einsum(sub, *ops).astype(jnp.float32))
+        tops = [to_torch(o) for o in ops]
+        got = torch.einsum(sub, *tops).float().numpy()
+        once = torch.einsum(sub, *[o.float() for o in tops]).to(torch.bfloat16).float().numpy()
+        tiny = lambda v: (v != 0) & (np.abs(v) < np.finfo(np.float32).tiny)  # noqa: E731
+        flushed = (want == 0) & (tiny(got) | np.any([tiny(np.broadcast_to(np.asarray(o.astype(jnp.float32)), got.shape))
+                                                     for o in ops if o.shape == got.shape], axis=0))
+        return int((got != want).sum()), int((once != want).sum()), int(((got != want) & ~flushed).sum())
+
+    xc, Bc, Cc = xj.reshape(1, 1, 256, 4, 16), Bj.reshape(1, 1, 256, 4, 16), Cj.reshape(1, 1, 256, 4, 16)
+    a_cs = jnp.cumsum(dAj.reshape(1, 1, 256, 4), axis=2)
+    scores = jnp.einsum("bclhn,bcshn->bchls", Cc, Bc)
+    bf, f32_once, _ = differ("bclhn,bcshn->bchls", Cc, Bc)
+    assert 0 < bf <= 1e-3 * scores.size and f32_once == 0
+    ldt = RS._segsum_decay(jnp.moveaxis(a_cs, -1, -2)).astype(jnp.bfloat16)
+    masked = jnp.einsum("bchls,bchls->bchls", scores, ldt)
+    assert differ("bchls,bchls->bchls", scores, ldt)[2] == 0  # products: flushes only
+    assert differ("bchls,bcshp->bclhp", masked, xc)[1] == 0  # the 256-long contraction
+    decay = jnp.exp(a_cs[:, :, -1:, :] - a_cs).astype(jnp.bfloat16)
+    assert differ("bclh,bclhp->bclhp", decay, xc)[2] == 0
+    assert differ("bclhp,bclhn->bchpn", jnp.einsum("bclh,bclhp->bclhp", decay, xc), Bc)[1] == 0
+
 # ---------------------------------------------------------------------------
 # the ten archs, reduced: block by block, then end to end
 # ---------------------------------------------------------------------------
