@@ -18,12 +18,14 @@ Phases, one JSON line each:
               (`SILU_SHAPES`: qwen3-4b's MLP hidden, mamba2-780m's conv
               output and its gate read where it lies in the projection, a
               column slice whose start and row stride are not 16-byte
-              aligned), an expert path's permuted einsum output and every
-              bf16 value, in bf16 and f32; `softplus_fwd` / `softplus_bwd` (the
-              SSD's softplus as XLA's CPU rounds it) against theirs on all
-              2^32 f32 patterns (with the count of elements the forward took
-              through the CPU's ops) and at mamba2-780m's dt, contiguous and
-              as rows;
+              aligned), a and its cotangent at different 16-byte phases,
+              every bf16 a against cotangents of every magnitude
+              (`SILU_H_BITS`), an expert path's permuted einsum output and
+              every bf16 value, in bf16 and f32; `softplus_fwd` /
+              `softplus_bwd` (the SSD's softplus as XLA's CPU rounds it)
+              against theirs on all 2^32 f32 patterns (with the count of
+              elements each kernel took through the CPU's ops) and at
+              mamba2-780m's dt, contiguous and as rows;
               and part `split_products`: `parallel.block_of_product` against
               the whole product's block for jamba's and mamba2's in-projection
               splits over 4 ranks, with the width each block takes;
@@ -59,8 +61,8 @@ Phases, one JSON line each:
               keyswitch, ct_mul_relin and rescale beside their floors; the
               silu kernels at `SILU_TIMED` beside their byte bound,
               their plain versions and `F.silu` / `aten.silu_backward`, the
-              forward's table's build time and the host's enqueue time per
-              call; the softplus kernels at
+              build time of each kernel's table and the host's enqueue time
+              per call; the softplus kernels at
               `SOFTPLUS_SHAPES` beside theirs and `F.softplus` /
               `aten.softplus_backward`; each beside an empty kernel's time
               at its launch shape (the launch floor).
@@ -390,6 +392,11 @@ SILU_SHAPES = (("qwen3-4b mlp decode", (4, 1, 9728), None), ("qwen3-4b mlp prefi
                ("qwen3-4b mlp train", (4, 512, 9728), None), ("mamba2-780m xbc train", (4, 512, 3328), None),
                ("mamba2-780m z train", (4, 512, 6448), 3072), ("mamba2-780m z decode", (4, 1, 6448), 3072),
                ("misaligned slice", (4, 64, 3335), (5, 3333)))
+#: Cotangents (bf16 bits) held against every bf16 input in the silu check:
+#: zeros, subnormals, 2^-126 and its neighbours, small and huge normals, the
+#: largest finite, infinity and NaN (each also negated).
+SILU_H_BITS = [0x0000, 0x0001, 0x0020, 0x007F, 0x0080, 0x0081, 0x0100, 0x0380, 0x0400, 0x0C00, 0x3F80, 0x4A00,
+               0x7000, 0x7F7F, 0x7F80, 0x7FC0]
 #: The shapes timed (the first is the kernels' row in the `kernels` line).
 SILU_TIMED = ("qwen3-4b mlp train", "mamba2-780m z train", "qwen3-4b mlp decode")
 #: Float32 operations outside the tensor cores, per second (NVIDIA H100 SXM
@@ -586,13 +593,32 @@ def silu_elements(shape, cols) -> int:
     return int(np.prod(shape[:-1])) * width
 
 
+def at_phase(t: torch.Tensor, elements: int) -> torch.Tensor:
+    """A dense copy of `t` that starts `elements` elements past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    return buf[elements:elements + t.numel()].view(t.shape).copy_(t)
+
+
 def silu_cases(rng, device):
-    """(name, input, cotangent) of the silu check: `SILU_SHAPES` in bf16, an
-    expert path's einsum output (permuted dims) and every bf16 value, in
-    bf16 and f32."""
+    """(name, input, cotangent) of the silu check: `SILU_SHAPES` in bf16; a
+    and its cotangent at different 16-byte phases (dense, and a column slice
+    against a dense cotangent); every bf16 value against cotangents of every
+    magnitude (`SILU_H_BITS`, both signs: zero, subnormal, at and beside
+    2^-126, huge, infinite, NaN); and an expert path's einsum output
+    (permuted dims) and every bf16 value, in bf16 and f32."""
     for name, shape, cols in SILU_SHAPES:
         a = silu_input(rng, shape, cols, device)
         yield name, a, silu_input(rng, a.shape, None, device)
+    a, h = silu_input(rng, (4, 64, 3072), None, device), silu_input(rng, (4, 64, 3072), None, device)
+    yield "phases: a at 0, h at 3", a, at_phase(h, 3)
+    yield "phases: a at 5, h at 2", at_phase(a, 5), at_phase(h, 2)
+    z = silu_input(rng, (4, 64, 6448), (1, 3073), device)
+    yield "phases: z slice at 1, h dense", z, silu_input(rng, z.shape, None, device)
+    hs = np.array(SILU_H_BITS + [b | 0x8000 for b in SILU_H_BITS], dtype=np.uint16)
+    every = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    yield ("every bf16 value against every cotangent class",
+           torch.from_numpy(np.tile(every, (len(hs), 1))).to(device, torch.bfloat16),
+           torch.from_numpy(np.repeat(hs[:, None], 1 << 16, axis=1).astype(np.int16)).to(device).view(torch.bfloat16))
     for dtype in (torch.bfloat16, torch.float32):
         buf, w = silu_input(rng, (4, 8, 32, 64), None, device, dtype), silu_input(rng, (8, 64, 96), None, device, dtype)
         a = torch.einsum("becd,edf->becf", buf, w)
@@ -659,22 +685,23 @@ def check_softplus(rng, device, total: int = 1 << 32, chunk: int = SOFTPLUS_CHUN
     appears as a cotangent too), bit for bit (the grad's NaNs as NaNs); then
     at `SOFTPLUS_SHAPES`, contiguous and as rows of a wider tensor; and a
     float64 tensor on the card refused.  On the card the sweep also counts
-    the elements that the forward computed again by the CPU's ops
+    the elements that each kernel computed again by the CPU's ops
     (`flagged`).  The launches here are the check's own: the caller resets
     the counts before the main path."""
     differ = {name: 0 for name in SOFTPLUS_INFO}
     errs = {name: 0.0 for name in SOFTPLUS_INFO}
     on_card = torch.device(device).type == "cuda"
-    flagged = torch.zeros(1, dtype=torch.int64, device=device) if on_card else None
+    flagged = {k: torch.zeros(1, dtype=torch.int64, device=device) for k in SOFTPLUS_INFO} if on_card else None
     t0 = time.perf_counter()
 
     def compare(x, g, count=None):
-        out = ksoftplus.softplus_fwd(x, flagged=count)
+        out = ksoftplus.softplus_fwd(x, flagged=count and count["softplus_fwd"])
         want = ksoftplus.softplus_fwd_plain(x)
         bad = softplus_differ(out, want, nan_as_nan=False)
         differ["softplus_fwd"] += int(bad.sum())
         errs["softplus_fwd"] = max(errs["softplus_fwd"], float_err(out, want))
-        dx, want = ksoftplus.softplus_bwd(x, want, g), ksoftplus.softplus_bwd_plain(x, want, g)
+        dx = ksoftplus.softplus_bwd(x, want, g, flagged=count and count["softplus_bwd"])
+        want = ksoftplus.softplus_bwd_plain(x, want, g)
         differ["softplus_bwd"] += int(softplus_differ(dx, want, nan_as_nan=True).sum())
         errs["softplus_bwd"] = max(errs["softplus_bwd"], float_err(dx, want))
 
@@ -699,7 +726,8 @@ def check_softplus(rng, device, total: int = 1 << 32, chunk: int = SOFTPLUS_CHUN
         except TypeError:
             refused = True
     out = {"patterns": total, "differ": differ, "max_abs_err": {k: 0.0 if not differ[k] else errs[k] for k in differ},
-           "sweep_s": sweep_s, "flagged": None if flagged is None else int(flagged.item()), "shapes": shapes,
+           "sweep_s": sweep_s, "flagged": None if flagged is None else {k: int(v.item()) for k, v in flagged.items()},
+           "shapes": shapes,
            "float64_refused": refused}
     if any(differ.values()) or (torch.device(device).type == "cuda" and not refused):
         raise AssertionError(f"softplus differs from its plain version: {out}")
@@ -1167,11 +1195,12 @@ def time_kernels(rng, device, batch: int, n: int, sm_mhz: float, tile: int = TIL
     return out
 
 
-def silu_launch_shape(a: torch.Tensor) -> tuple[int, int]:
-    """(CTAs, threads) of `silu_fwd` on bf16 `a`: its rows (one where it is
-    contiguous) in tiles of 512 16-byte vectors, 256 threads a CTA."""
+def silu_launch_shape(a: torch.Tensor, vectors: int = 2) -> tuple[int, int]:
+    """(CTAs, threads) of a silu kernel on bf16 `a`: its rows (one where it
+    is contiguous) in tiles of 256 threads x `vectors` 16-byte vectors
+    (`silu_fwd` two a thread, `silu_bwd` one)."""
     rows, cols = (1, a.numel()) if a.is_contiguous() else (a.numel() // a.shape[-1], a.shape[-1])
-    return rows * -(-(-(-cols // 8)) // 512), 256
+    return rows * -(-(-(-cols // 8)) // (256 * vectors)), 256
 
 
 def time_silu(rng, device, names=SILU_TIMED) -> dict:
@@ -1181,17 +1210,21 @@ def time_silu(rng, device, names=SILU_TIMED) -> dict:
     once, and `SILU_FLOPS` at the f32 rate), the plain version and one
     PyTorch call of the same function that rounds once: `F.silu` and
     `aten.silu_backward`; and an empty kernel at `silu_fwd`'s launch shape
-    (`launch_floor_ms`).  `host_ms` is the host's time to enqueue one call.
-    Also the time to build `silu_fwd`'s table on the card, once."""
+    (`launch_floor_ms`; the backward's at its own).  `host_ms` is
+    the host's time to enqueue one call.  Also the time to build each
+    kernel's table on the card, once: `silu_fwd`'s results, `silu_bwd`'s
+    (d, c)."""
     out = {}
     index = torch.device(device).index or 0
-    ksilu._TABLES.pop(index, None)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ksilu._table(index)
-    torch.cuda.synchronize()
-    out["table_build_ms"] = (time.perf_counter() - t0) * 1e3
-    out["table_bytes"] = ksilu._table(index).numel() * 2
+    for key, tables, build in (("table", ksilu._TABLES, ksilu._table), ("grad_table", ksilu._GRAD_TABLES,
+                                                                         ksilu._grad_table)):
+        tables.pop(index, None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build(index)
+        torch.cuda.synchronize()
+        out[f"{key}_build_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{key}_bytes"] = build(index).numel() * build(index).element_size()
     for name, shape, cols in SILU_SHAPES:
         if name not in names:
             continue
@@ -1214,9 +1247,10 @@ def time_silu(rng, device, names=SILU_TIMED) -> dict:
                            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes,
                            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "elements": n,
                            "library_call": "F.silu" if kname == "silu_fwd" else "aten.silu_backward"}
-        blocks, threads = silu_launch_shape(a[0])
-        rows["silu_fwd"]["launch_floor_ms"] = time_ms(lambda: _build.empty_launch(blocks, threads, device), 50)["ms"]
-        rows["silu_fwd"]["launch_shape"] = [blocks, threads]
+        for kname, vectors in (("silu_fwd", 2), ("silu_bwd", 1)):
+            blocks, threads = silu_launch_shape(a[0], vectors)
+            rows[kname]["launch_floor_ms"] = time_ms(lambda: _build.empty_launch(blocks, threads, device), 50)["ms"]
+            rows[kname]["launch_shape"] = [blocks, threads]
         out[name] = {"shape": list(shape), "cols": cols, **rows}
     return out
 
@@ -1229,8 +1263,8 @@ def time_softplus(device) -> dict:
     rate: the forward's log1p branch as each input of the ring selects it),
     the plain version, one PyTorch call of the same function that rounds
     otherwise: `F.softplus` and `aten.softplus_backward`, and an empty
-    kernel at the forward's launch shape (`launch_floor_ms`: 128 threads
-    an element a thread)."""
+    kernel at the kernels' launch shape (`launch_floor_ms`: 128 threads, an
+    element a thread)."""
     gen = torch.Generator(device=device).manual_seed(SEED)
     out = {}
     for name, shape in SOFTPLUS_SHAPES:
@@ -1261,8 +1295,10 @@ def time_softplus(device) -> dict:
                            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes,
                            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "elements": n, "library_call": call}
         blocks = -(-n // 128)
-        rows["softplus_fwd"]["launch_floor_ms"] = time_ms(lambda: _build.empty_launch(blocks, 128, device), 50)["ms"]
-        rows["softplus_fwd"]["launch_shape"] = [blocks, 128]
+        floor = time_ms(lambda: _build.empty_launch(blocks, 128, device), 50)["ms"]
+        for kname in calls:
+            rows[kname]["launch_floor_ms"] = floor
+            rows[kname]["launch_shape"] = [blocks, 128]
         out[name] = {"shape": list(shape), "ring": ring, **rows}
         del x, y, g
     return out
@@ -2540,7 +2576,8 @@ def main() -> int:
             "bit_exact": softplus_checked["differ"][kname] == 0, "patterns_checked": softplus_checked["patterns"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "library_call": rec["library_call"],
-            "launch_floor_ms": rec.get("launch_floor_ms"), "flagged_in_sweep": softplus_checked["flagged"],
+            "launch_floor_ms": rec.get("launch_floor_ms"),
+            "flagged_in_sweep": (softplus_checked["flagged"] or {}).get(kname),
             "shape": softplus_timing[SOFTPLUS_SHAPES[0][0]]["shape"],
         })
     emit({"kernels": rows})

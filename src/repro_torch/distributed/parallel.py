@@ -41,7 +41,10 @@ length for the all-gather); and
 `row_parallel(..., whole=True)` takes the replicated rows whole and gives
 their grad back whole (an all-gather) in the same way.  Between a
 `gather_model` and a `split_to_model` the compute is replicated, and
-nothing is summed over `model` in the backward.
+nothing is summed over `model` in the backward.  A weight that the heads
+share (the q / k norms, `layers.head_norm`) is not copied to `model`: its
+backward gathers the ranks' per-head partial grads and each rank sums
+them all in one device's order.
 
 The serving steps enter the same plan (with the caches' placements) and
 run no backward; decode's partial softmax reduces its max and sum of exps

@@ -132,11 +132,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.silu_fwd_launch.restype = I
     lib.silu_table_launch.argtypes = [P, P]
     lib.silu_table_launch.restype = I
-    lib.silu_bwd_launch.argtypes = [P, L, P, L, P, L, L, I, P]
+    lib.silu_grad_table_launch.argtypes = [P, P]
+    lib.silu_grad_table_launch.restype = I
+    lib.silu_bwd_launch.argtypes = [P, L, P, L, P, L, L, I, P, P]
     lib.silu_bwd_launch.restype = I
     lib.softplus_fwd_launch.argtypes = [P, L, P, L, L, P, P]
     lib.softplus_fwd_launch.restype = I
-    lib.softplus_bwd_launch.argtypes = [P, L, P, L, P, L, P, L, L, P]
+    lib.softplus_bwd_launch.argtypes = [P, L, P, L, P, L, P, L, L, P, P]
     lib.softplus_bwd_launch.restype = I
     lib.empty_launch.argtypes = [I, I, P]
     lib.empty_launch.restype = I

@@ -24,10 +24,24 @@
 // reads a table of all 65,536 results (128 KiB, built on the card by `silu_one` itself,
 // exact by construction) through the read-only cache.  (Fast intrinsics with `expf`
 // re-done near a bf16 rounding midpoint were exact too, and slower at every LM shape.)
-// The f32 forward keeps `silu_one<float>`.  The backward walks rows of unit-stride
-// elements with a row stride of their own (a column slice of a projection, as the mixer's
-// `z`, is read where it lies), in tiles of kThreads x kPerThread elements of one row,
-// neighbouring threads on neighbouring elements; both outputs are dense.
+// The f32 forward keeps `silu_one<float>`.
+// The backward (redesigned for the card) moves three streams in the same 16-byte accesses,
+// one vector a thread (more warps in flight than with two or four, which were slower), a's
+// vectors setting the phase: h's row is read in vectors where it lies at a's phase (else
+// one element at a time), the output stored whole where it does.  For bf16 a table
+// of (d, c) for every a (256 KiB, built on the card by `logistic` and today's ops, exact
+// by construction) leaves four rounded ops, j = a h, k = h d, l = j c, grad = k + l,
+// computed as packed bf16x2 FMAs (`__hfma2`: a product plus -0, a sum as k * 1 + l), one
+// rounding each.  A product of two bf16 values is exact in f32, and a sum of two is exact
+// in f32 where their exponents differ by 16 or less and rounds to the larger otherwise,
+// so one rounding to bf16 equals the reference's f32 op and rounding everywhere but where
+// its flush acts: an element where a, h or a result lies in (0, 2^-126] is computed again
+// by the reference's ops (on the table's d and c); a zero, exact or flushed, carries the
+// same sign either way.  (The reference's ops on the same table, exact too, were slower at
+// every LM shape.)  The f32 backward keeps
+// `silu_grad_one<float>`.  Both walk rows of unit-stride elements with row strides of
+// their own (a column slice of a projection, as the mixer's `z`, is read where it lies);
+// the output is dense.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -36,11 +50,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPerThread = 8;
-constexpr long long kTile = static_cast<long long>(kThreads) * kPerThread;
 constexpr float kMinNormal = 1.17549435e-38f;  // FLT_MIN
-// The forward: 16-byte vectors a thread, and the longest row one launch walks with
-// 32-bit column indices (a longer one goes as pieces of it).
+// The forward's 16-byte vectors a thread (the backward's one), and the longest row one
+// launch walks with 32-bit column indices (a longer one goes as pieces of it).
 constexpr int kVecs = 2;
 constexpr int kTileVecs = kThreads * kVecs;
 constexpr long long kMaxCols = 1LL << 30;
@@ -105,6 +117,58 @@ __device__ __forceinline__ T silu_grad_one(T av, T hv) {
 }
 
 using Bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float bf16_bits(uint32_t bits) { return __uint_as_float(bits << 16); }
+
+// The reference's last four ops on one bf16 element, d and c given: raw bits in and out.
+__device__ __forceinline__ uint32_t grad_exact(uint32_t abits, uint32_t hbits, uint32_t dc) {
+  const float a = flush(bf16_bits(abits));
+  const float h = flush(bf16_bits(hbits));
+  const float d = __uint_as_float(dc << 16);
+  const float c = __uint_as_float(dc & 0xFFFF0000u);
+  const float j = keep<Bf16>(__fmul_rn(a, h));
+  const float k = keep<Bf16>(__fmul_rn(h, d));
+  const float l = keep<Bf16>(__fmul_rn(j, c));
+  return __bfloat16_as_ushort(Io<Bf16>::store(keep<Bf16>(__fadd_rn(k, l))));
+}
+
+__device__ __forceinline__ __nv_bfloat162 pair(uint32_t w) { return *reinterpret_cast<const __nv_bfloat162*>(&w); }
+__device__ __forceinline__ uint32_t pair_bits(__nv_bfloat162 v) { return *reinterpret_cast<const uint32_t*>(&v); }
+
+// Bit 15 of each 16-bit lane set where the lane's bf16 magnitude lies in (0, 2^-126]
+// (0x0001-0x0080): m + 0x7FFF carries into bit 15 from 1, m + 0x7F7F from 0x81, and no
+// lane carries into the next.
+__device__ __forceinline__ uint32_t tiny_lanes(uint32_t w) {
+  const uint32_t m = w & 0x7FFF7FFFu;
+  return (m + 0x7FFF7FFFu) & ~(m + 0x7F7F7F7Fu);
+}
+
+// The backward's element functions on one 32-bit word of a and of h: two bf16 lanes (a
+// scalar element in the low one) or one f32.
+struct GradTable {
+  const uint32_t* table;
+  __device__ __forceinline__ uint32_t operator()(uint32_t wa, uint32_t wh) const {
+    const uint32_t t0 = __ldg(table + (wa & 0xFFFFu));
+    const uint32_t t1 = __ldg(table + (wa >> 16));
+    const __nv_bfloat162 a = pair(wa), h = pair(wh);
+    const __nv_bfloat162 d = pair(__byte_perm(t0, t1, 0x5410)), c = pair(__byte_perm(t0, t1, 0x7632));
+    const __nv_bfloat162 neg_zero = pair(0x80008000u), one = pair(0x3F803F80u);
+    const __nv_bfloat162 j = __hfma2(a, h, neg_zero);
+    const __nv_bfloat162 k = __hfma2(h, d, neg_zero);
+    const __nv_bfloat162 l = __hfma2(j, c, neg_zero);
+    const uint32_t g = pair_bits(__hfma2(k, one, l));
+    const uint32_t tiny = (tiny_lanes(wa) | tiny_lanes(wh) | tiny_lanes(pair_bits(j)) | tiny_lanes(pair_bits(k)) |
+                           tiny_lanes(pair_bits(l)) | tiny_lanes(g)) & 0x80008000u;
+    if (tiny == 0) return g;
+    return grad_exact(wa & 0xFFFFu, wh & 0xFFFFu, t0) | (grad_exact(wa >> 16, wh >> 16, t1) << 16);
+  }
+};
+
+struct GradF32 {
+  __device__ __forceinline__ uint32_t operator()(uint32_t wa, uint32_t wh) const {
+    return __float_as_uint(silu_grad_one<float>(__uint_as_float(wa), __uint_as_float(wh)));
+  }
+};
 
 // The forward's element functions, raw bits in and out (a bf16 in the low 16 bits).
 struct SiluTable {
@@ -193,63 +257,127 @@ __global__ void __launch_bounds__(kThreads) silu_table_kernel(unsigned short* __
   table[i] = __bfloat16_as_ushort(silu_one<Bf16>(__ushort_as_bfloat16(static_cast<unsigned short>(i))));
 }
 
-template <class T>
+// The (d, c) table of every bf16 a: d = logistic(a) and c = d (1 - d) as the reference
+// rounds them, d in the low 16 bits.
+__global__ void __launch_bounds__(kThreads) silu_grad_table_kernel(uint32_t* __restrict__ table) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const float a = flush(bf16_bits(static_cast<uint32_t>(i)));
+  const float d = logistic<Bf16>(a);
+  const float e = round_to<Bf16>(__fsub_rn(1.0f, d));
+  const float c = keep<Bf16>(__fmul_rn(d, e));
+  table[i] = (__float_as_uint(d) >> 16) | (__float_as_uint(c) & 0xFFFF0000u);
+}
+
+// A word of E elements at p, read one element at a time (p need not be aligned).
+template <class E>
+__device__ __forceinline__ uint32_t word_at(const E* p) {
+  return sizeof(E) == 2 ? static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[1]) << 16)
+                        : static_cast<uint32_t>(p[0]);
+}
+
+// As silu_fwd_kernel, over a and h, one 16-byte vector a thread (tiles of kThreads
+// vectors): row r reads a + r * sa and h + r * sh and writes out + r * cols.  a's 16-byte
+// boundaries set the head, the vectors and the tail; h's vector is read whole where h's
+// row lies at a's phase, else one element at a time; the output's is stored whole where
+// it lies at that phase.
+template <class E, class Op>
 __global__ void __launch_bounds__(kThreads)
-    silu_bwd_kernel(const T* __restrict__ a, long long sa, const T* __restrict__ h, long long sh,
-                    T* __restrict__ out, long long cols, long long tiles_per_row, long long tiles) {
+    silu_bwd_kernel(const E* __restrict__ a, long long sa, const E* __restrict__ h, long long sh,
+                    E* __restrict__ out, int cols, int tiles_per_row, long long tiles, Op op) {
+  constexpr int kV = 16 / sizeof(E);
+  constexpr int kW = 4 / sizeof(E);  // elements a word
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const long long r = t / tiles_per_row;
-    const long long c0 = (t - r * tiles_per_row) * kTile + threadIdx.x;
-    const T* ar = a + r * sa;
-    const T* hr = h + r * sh;
-    T* outr = out + r * cols;
+    const int tile = static_cast<int>(t - r * tiles_per_row);
+    const E* ar = a + r * sa;
+    const E* hr = h + r * sh;
+    E* outr = out + r * cols;
+    const int lead = static_cast<int>((16 - (reinterpret_cast<uintptr_t>(ar) & 15)) & 15) / static_cast<int>(sizeof(E));
+    const int head = lead < cols ? lead : cols;
+    const int nvec = (cols - head) / kV;
+    const int body_end = head + nvec * kV;
+    if (tile == 0 && static_cast<int>(threadIdx.x) < head + cols - body_end) {
+      const int c = static_cast<int>(threadIdx.x) < head ? threadIdx.x : body_end + threadIdx.x - head;
+      outr[c] = static_cast<E>(op(ar[c], hr[c]));
+    }
+    const int v = tile * kThreads + threadIdx.x;
+    if (v >= nvec) continue;
+    const uint4 va = __ldg(reinterpret_cast<const uint4*>(ar + head + v * kV));
+    const E* hv = hr + head + v * kV;
+    const uint4 vh = ((reinterpret_cast<uintptr_t>(hr + head)) & 15) == 0
+                         ? __ldg(reinterpret_cast<const uint4*>(hv))
+                         : make_uint4(word_at(hv), word_at(hv + kW), word_at(hv + 2 * kW), word_at(hv + 3 * kW));
+    uint32_t w[4];
 #pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const long long c = c0 + static_cast<long long>(k) * kThreads;
-      if (c < cols) outr[c] = silu_grad_one<T>(ar[c], hr[c]);
+    for (int i = 0; i < 4; ++i) w[i] = op(word(va, i), word(vh, i));
+    E* dst = outr + head + v * kV;
+    if (((reinterpret_cast<uintptr_t>(outr + head)) & 15) == 0) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (sizeof(E) == 2) {
+          dst[2 * i] = static_cast<E>(w[i] & 0xFFFFu);
+          dst[2 * i + 1] = static_cast<E>(w[i] >> 16);
+        } else {
+          dst[i] = static_cast<E>(w[i]);
+        }
+      }
     }
   }
 }
 
-// The tiles of rows x cols, and a grid that strides over them past 2^20 blocks.
-bool tiling(long long rows, long long cols, long long* tiles_per_row, long long* tiles,
-            unsigned* grid) {
-  if (rows < 1 || cols < 1) return false;
-  *tiles_per_row = (cols + kTile - 1) / kTile;
-  *tiles = rows * *tiles_per_row;
-  *grid = static_cast<unsigned>(*tiles < (1LL << 20) ? *tiles : (1LL << 20));
-  return true;
-}
-
-// One forward launch over rows x cols (cols <= kMaxCols).
-template <class E, class Op>
-void fwd_launch(const void* a, long long sa, void* y, long long rows, long long cols, Op op, cudaStream_t s) {
+// Tiles of rows x cols elements of E (cols <= kMaxCols), `per_tile` 16-byte vectors of a
+// row each, and a grid that strides over them past 2^20 blocks.
+template <class E>
+unsigned vec_tiles(long long rows, long long cols, long long per_tile, long long* tiles_per_row, long long* tiles) {
   constexpr long long kV = 16 / sizeof(E);
-  const long long tiles_per_row = ((cols + kV - 1) / kV + kTileVecs - 1) / kTileVecs;
-  const long long tiles = rows * tiles_per_row;
-  const unsigned grid = static_cast<unsigned>(tiles < (1LL << 20) ? tiles : (1LL << 20));
-  silu_fwd_kernel<E, Op><<<grid, kThreads, 0, s>>>(static_cast<const E*>(a), sa, static_cast<E*>(y),
-                                                   static_cast<int>(cols), static_cast<int>(tiles_per_row),
-                                                   tiles, op);
+  *tiles_per_row = ((cols + kV - 1) / kV + per_tile - 1) / per_tile;
+  *tiles = rows * *tiles_per_row;
+  return static_cast<unsigned>(*tiles < (1LL << 20) ? *tiles : (1LL << 20));
 }
 
-// The forward over rows x cols; a row longer than kMaxCols as pieces of kMaxCols (a
-// multiple of 8 elements, so each piece keeps the row's phase), one launch each.
-template <class E, class Op>
-int fwd(const void* a, long long sa, void* y, long long rows, long long cols, Op op, cudaStream_t s) {
+// Runs launch(rows, cols, r, c) over rows x cols: once (r = c = 0) where cols <= kMaxCols,
+// else over each row in pieces of kMaxCols (a multiple of 8 elements, so each piece keeps
+// the row's phase), piece (r, c) as one row; the first launch error stops it.
+template <class Launch>
+int walk(long long rows, long long cols, Launch launch) {
   if (cols <= kMaxCols) {
-    fwd_launch<E>(a, sa, y, rows, cols, op, s);
+    launch(rows, cols, 0LL, 0LL);
     return static_cast<int>(cudaGetLastError());
   }
   for (long long r = 0; r < rows; ++r) {
     for (long long c = 0; c < cols; c += kMaxCols) {
-      const long long n = cols - c < kMaxCols ? cols - c : kMaxCols;
-      fwd_launch<E>(static_cast<const E*>(a) + r * sa + c, n, static_cast<E*>(y) + r * cols + c, 1, n, op, s);
+      launch(1LL, cols - c < kMaxCols ? cols - c : kMaxCols, r, c);
       const int err = static_cast<int>(cudaGetLastError());
       if (err) return err;
     }
   }
   return 0;
+}
+
+template <class E, class Op>
+int fwd(const void* a, long long sa, void* y, long long rows, long long cols, Op op, cudaStream_t s) {
+  return walk(rows, cols, [&](long long nr, long long nc, long long r, long long c) {
+    long long tiles_per_row, tiles;
+    const unsigned grid = vec_tiles<E>(nr, nc, kTileVecs, &tiles_per_row, &tiles);
+    silu_fwd_kernel<E, Op><<<grid, kThreads, 0, s>>>(static_cast<const E*>(a) + r * sa + c, sa,
+                                                     static_cast<E*>(y) + r * cols + c, static_cast<int>(nc),
+                                                     static_cast<int>(tiles_per_row), tiles, op);
+  });
+}
+
+template <class E, class Op>
+int bwd(const void* a, long long sa, const void* h, long long sh, void* out, long long rows, long long cols, Op op,
+        cudaStream_t s) {
+  return walk(rows, cols, [&](long long nr, long long nc, long long r, long long c) {
+    long long tiles_per_row, tiles;
+    const unsigned grid = vec_tiles<E>(nr, nc, kThreads, &tiles_per_row, &tiles);
+    silu_bwd_kernel<E, Op><<<grid, kThreads, 0, s>>>(static_cast<const E*>(a) + r * sa + c, sa,
+                                                     static_cast<const E*>(h) + r * sh + c, sh,
+                                                     static_cast<E*>(out) + r * cols + c, static_cast<int>(nc),
+                                                     static_cast<int>(tiles_per_row), tiles, op);
+  });
 }
 
 }  // namespace
@@ -273,25 +401,22 @@ extern "C" int silu_table_launch(void* table, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// As silu_fwd_launch, with h's rows at h + r * sh.
+// (d, c) of every bf16 bit pattern into `table` (65,536 words), as silu_bwd reads it.
+extern "C" int silu_grad_table_launch(void* table, void* stream) {
+  silu_grad_table_kernel<<<(1 << 16) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(table));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As silu_fwd_launch, with h's rows at h + r * sh (sh >= cols where rows > 1); bf16 reads
+// `table` (silu_grad_table_launch's).
 extern "C" int silu_bwd_launch(const void* a, long long sa, const void* h, long long sh, void* out,
-                               long long rows, long long cols, int dtype, void* stream) {
-  long long tiles_per_row, tiles;
-  unsigned grid;
-  if (!tiling(rows, cols, &tiles_per_row, &tiles, &grid) || (rows > 1 && (sa < cols || sh < cols)))
+                               long long rows, long long cols, int dtype, const void* table, void* stream) {
+  if (rows < 1 || cols < 1 || (rows > 1 && (sa < cols || sh < cols)) || (dtype == 0 && table == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    silu_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a), sa, static_cast<const __nv_bfloat16*>(h), sh,
-        static_cast<__nv_bfloat16*>(out), cols, tiles_per_row, tiles);
-  } else if (dtype == 1) {
-    silu_bwd_kernel<float><<<grid, kThreads, 0, s>>>(static_cast<const float*>(a), sa,
-                                                     static_cast<const float*>(h), sh,
-                                                     static_cast<float*>(out), cols, tiles_per_row,
-                                                     tiles);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) return bwd<uint16_t>(a, sa, h, sh, out, rows, cols, GradTable{static_cast<const uint32_t*>(table)},
+                                       s);
+  if (dtype == 1) return bwd<uint32_t>(a, sa, h, sh, out, rows, cols, GradF32{}, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,24 +19,21 @@
 // 4 x 512 x 48 f32, 384 KiB; decode's 4 x 48), so a launch is bound by its latency.
 // Both walk rows of unit-stride elements with their own row strides (a contiguous
 // tensor is one row), neighbouring threads on neighbouring elements; the output is dense.
-// The forward (redesigned for the card) covers the latency with warps: one element a
-// thread in CTAs of kFwdThreads (768 CTAs, ~6 an SM, at the train shape), its chain in
-// plain f32 ops (`Fast`), which note whether any result had |r| <= 2^-126; only such an
-// element, rare (subnormal, tiny or huge inputs, NaN), is computed again by the CPU's
-// ops (`Cpu`).  That is exact: `cpu_mul`, `cpu_fma` and `cpu_add` return the plain
-// op's r whenever |r| > 2^-126.  Of log1p's two branches only the one selected runs.
-// The backward walks tiles of kThreads x kPerThread elements of one row.
+// Both (redesigned for the card) cover the latency with warps: one element a thread in
+// CTAs of kThreads (768 CTAs, ~6 an SM, at the train shape), its chain in plain f32 ops
+// (`Fast`), which note whether any result had |r| <= 2^-126; only such an element, rare
+// (subnormal, tiny or huge inputs, NaN; for the grad also a zero cotangent or
+// x - out = 0), is computed again by the CPU's ops (`Cpu`).  That is exact: `Cpu::mul`,
+// `Cpu::fma` and `Cpu::add` return the plain op's r whenever |r| > 2^-126.  Of log1p's
+// two branches only the one selected runs.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPerThread = 4;
-constexpr long long kTile = static_cast<long long>(kThreads) * kPerThread;
-constexpr int kFwdThreads = 128;
-constexpr long long kFwdGrid = 1 << 14;  // the forward's most CTAs; more tiles are strided over
+constexpr int kThreads = 128;
+constexpr long long kMaxGrid = 1 << 14;  // the most CTAs; more tiles are strided over
 constexpr long long kMaxCols = 1LL << 30;
 constexpr float kMinNormal = 1.17549435e-38f;  // 2^-126
 // The least |v| whose rounding to 24 bits (exponent unbounded) is 2^-126 or more.
@@ -156,31 +153,54 @@ __device__ __forceinline__ float softplus_one(float xv, Ops& op) {
 
 __device__ __forceinline__ float pos_inf_as_zero(float v) { return v == __int_as_float(0x7F800000) ? 0.0f : v; }
 
-__device__ __forceinline__ float softplus_grad_one(float x, float out, float g) {
-  Cpu op;
+template <class Ops>
+__device__ __forceinline__ float softplus_grad_one(float x, float out, float g, Ops& op) {
   const float d = op.add(pos_inf_as_zero(daz(x)), -pos_inf_as_zero(out));
   return op.mul(daz(g), xla_exp(d, op));
 }
 
-// Tile t covers row t / tiles_per_row, columns from (t % tiles_per_row) * kFwdThreads; with
+// The forward's element: softplus of x (`o` and `g` unread).
+struct Forward {
+  static constexpr bool kGrad = false;
+  template <class Ops>
+  __device__ __forceinline__ float operator()(float x, float, float, Ops& op) const {
+    return softplus_one(x, op);
+  }
+};
+
+// The backward's: the grad at x, whose softplus is o, applied to g.
+struct Backward {
+  static constexpr bool kGrad = true;
+  template <class Ops>
+  __device__ __forceinline__ float operator()(float x, float o, float g, Ops& op) const {
+    return softplus_grad_one(x, o, g, op);
+  }
+};
+
+// Tile t covers row t / tiles_per_row, columns from (t % tiles_per_row) * kThreads, one
+// element a thread: x's at x + r * sx + c (and the backward's o and g likewise); with
 // `flagged`, each CTA adds its count of elements that took the CPU's ops.
-__global__ void __launch_bounds__(kFwdThreads)
-    softplus_fwd_kernel(const float* __restrict__ x, long long sx, float* __restrict__ out, int cols,
-                        int tiles_per_row, long long tiles, unsigned long long* __restrict__ flagged) {
+template <class F>
+__global__ void __launch_bounds__(kThreads)
+    softplus_kernel(const float* __restrict__ x, long long sx, const float* __restrict__ o, long long so,
+                    const float* __restrict__ g, long long sg, float* __restrict__ out, int cols,
+                    int tiles_per_row, long long tiles, unsigned long long* __restrict__ flagged, F f) {
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const long long r = t / tiles_per_row;
-    const int c = static_cast<int>(t - r * tiles_per_row) * kFwdThreads + threadIdx.x;
+    const int c = static_cast<int>(t - r * tiles_per_row) * kThreads + threadIdx.x;
     bool slow = false;
     if (c < cols) {
       const float xv = x[r * sx + c];
+      const float ov = F::kGrad ? o[r * so + c] : 0.0f;
+      const float gv = F::kGrad ? g[r * sg + c] : 0.0f;
       Fast fast;
-      float o = softplus_one(xv, fast);
+      float v = f(xv, ov, gv, fast);
       slow = fast.tiny;
       if (slow) {
         Cpu cpu;
-        o = softplus_one(xv, cpu);
+        v = f(xv, ov, gv, cpu);
       }
-      out[r * cols + c] = o;
+      out[r * cols + c] = v;
     }
     if (flagged != nullptr) {  // the same for every thread of the grid
       const int n = __syncthreads_count(slow);
@@ -189,42 +209,34 @@ __global__ void __launch_bounds__(kFwdThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    softplus_bwd_kernel(const float* __restrict__ x, long long sx, const float* __restrict__ o, long long so,
-                        const float* __restrict__ g, long long sg, float* __restrict__ dx, long long cols,
-                        long long tiles_per_row, long long tiles) {
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long r = t / tiles_per_row;
-    const long long c0 = (t - r * tiles_per_row) * kTile + threadIdx.x;
-    const float* xr = x + r * sx;
-    const float* orow = o + r * so;
-    const float* gr = g + r * sg;
-    float* dxr = dx + r * cols;
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const long long c = c0 + static_cast<long long>(k) * kThreads;
-      if (c < cols) dxr[c] = softplus_grad_one(xr[c], orow[c], gr[c]);
+// The kernel over rows x cols; a row past 32-bit columns (kMaxCols) in pieces, one
+// launch each, as one row.
+template <class F>
+int launch(const void* x, long long sx, const void* o, long long so, const void* g, long long sg, void* out,
+           long long rows, long long cols, void* flagged, void* stream, F f) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto count = static_cast<unsigned long long*>(flagged);
+  auto at = [](const void* p, long long off) { return p == nullptr ? nullptr : static_cast<const float*>(p) + off; };
+  auto one = [&](long long nr, long long nc, long long r, long long c) {
+    const long long tiles_per_row = (nc + kThreads - 1) / kThreads;
+    const long long tiles = nr * tiles_per_row;
+    const unsigned grid = static_cast<unsigned>(tiles < kMaxGrid ? tiles : kMaxGrid);
+    softplus_kernel<F><<<grid, kThreads, 0, s>>>(at(x, r * sx + c), sx, at(o, r * so + c), so, at(g, r * sg + c),
+                                                 sg, static_cast<float*>(out) + r * cols + c, static_cast<int>(nc),
+                                                 static_cast<int>(tiles_per_row), tiles, count, f);
+  };
+  if (cols <= kMaxCols) {
+    one(rows, cols, 0, 0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  for (long long r = 0; r < rows; ++r) {
+    for (long long c = 0; c < cols; c += kMaxCols) {
+      one(1, cols - c < kMaxCols ? cols - c : kMaxCols, r, c);
+      const int err = static_cast<int>(cudaGetLastError());
+      if (err) return err;
     }
   }
-}
-
-// The tiles of rows x cols, and a grid that strides over them past 2^20 blocks.
-bool tiling(long long rows, long long cols, long long* tiles_per_row, long long* tiles, unsigned* grid) {
-  if (rows < 1 || cols < 1) return false;
-  *tiles_per_row = (cols + kTile - 1) / kTile;
-  *tiles = rows * *tiles_per_row;
-  *grid = static_cast<unsigned>(*tiles < (1LL << 20) ? *tiles : (1LL << 20));
-  return true;
-}
-
-// One forward launch over rows x cols (cols <= kMaxCols).
-void fwd_launch(const float* x, long long sx, float* out, long long rows, long long cols,
-                unsigned long long* flagged, cudaStream_t s) {
-  const long long tiles_per_row = (cols + kFwdThreads - 1) / kFwdThreads;
-  const long long tiles = rows * tiles_per_row;
-  const unsigned grid = static_cast<unsigned>(tiles < kFwdGrid ? tiles : kFwdGrid);
-  softplus_fwd_kernel<<<grid, kFwdThreads, 0, s>>>(x, sx, out, static_cast<int>(cols),
-                                                  static_cast<int>(tiles_per_row), tiles, flagged);
+  return 0;
 }
 
 __global__ void empty_kernel() {}
@@ -236,36 +248,16 @@ __global__ void empty_kernel() {}
 extern "C" int softplus_fwd_launch(const void* x, long long sx, void* out, long long rows, long long cols,
                                    void* flagged, void* stream) {
   if (rows < 1 || cols < 1 || (rows > 1 && sx < cols)) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto count = static_cast<unsigned long long*>(flagged);
-  const float* xs = static_cast<const float*>(x);
-  float* outs = static_cast<float*>(out);
-  if (cols <= kMaxCols) {
-    fwd_launch(xs, sx, outs, rows, cols, count, s);
-    return static_cast<int>(cudaGetLastError());
-  }
-  for (long long r = 0; r < rows; ++r) {  // a row past 32-bit columns goes in pieces
-    for (long long c = 0; c < cols; c += kMaxCols) {
-      const long long n = cols - c < kMaxCols ? cols - c : kMaxCols;
-      fwd_launch(xs + r * sx + c, n, outs + r * cols + c, 1, n, count, s);
-      const int err = static_cast<int>(cudaGetLastError());
-      if (err) return err;
-    }
-  }
-  return 0;
+  return launch(x, sx, nullptr, 0, nullptr, 0, out, rows, cols, flagged, stream, Forward{});
 }
 
 // As softplus_fwd_launch, with out's rows at o + r * so and g's at g + r * sg.
 extern "C" int softplus_bwd_launch(const void* x, long long sx, const void* o, long long so, const void* g,
-                                   long long sg, void* dx, long long rows, long long cols, void* stream) {
-  long long tiles_per_row, tiles;
-  unsigned grid;
-  if (!tiling(rows, cols, &tiles_per_row, &tiles, &grid) || (rows > 1 && (sx < cols || so < cols || sg < cols)))
+                                   long long sg, void* dx, long long rows, long long cols, void* flagged,
+                                   void* stream) {
+  if (rows < 1 || cols < 1 || (rows > 1 && (sx < cols || so < cols || sg < cols)) || o == nullptr || g == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  softplus_bwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), sx, static_cast<const float*>(o), so, static_cast<const float*>(g), sg,
-      static_cast<float*>(dx), cols, tiles_per_row, tiles);
-  return static_cast<int>(cudaGetLastError());
+  return launch(x, sx, o, so, g, sg, dx, rows, cols, flagged, stream, Backward{});
 }
 
 // An empty kernel on `blocks` CTAs of `threads`: the floor under a launch that small.

@@ -19,7 +19,9 @@ output, whose strides the output takes) or when it is rows of unit-stride
 elements (a column slice of a projection); any other layout is copied
 first.  The output is dense.  A contiguous input, the common case, skips the
 layout walk.  On the card `silu_fwd` reads bf16 results from a table of
-all 65,536 (`csrc/silu.cu`), built on each card at first use.
+all 65,536 (`csrc/silu.cu`), and `silu_bwd` the logistic d and c = d (1 -
+d) of every bf16 input from a table of its own, each built on each card at
+first use.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ LAUNCHES = {"silu_fwd": 0, "silu_bwd": 0}
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _TABLES: dict = {}  # card index -> silu of every bf16 value, `silu_fwd`'s table there
+_GRAD_TABLES: dict = {}  # card index -> (d, c) of every bf16 value, `silu_bwd`'s table there
 _MIN_NORMAL = torch.finfo(torch.float32).tiny
 
 
@@ -152,6 +155,21 @@ def _table(index: int):
     return table
 
 
+def _grad_table(index: int):
+    """`silu_bwd`'s table on card `index`: for every bf16 bit pattern a,
+    d = logistic(a) and c = d (1 - d) as the reference rounds them (d in
+    the low half of each int32), built there by the kernel's exact ops at
+    first use."""
+    table = _GRAD_TABLES.get(index)
+    if table is None:
+        table = torch.empty(1 << 16, dtype=torch.int32, device=torch.device("cuda", index))
+        with _build.on_device(index):
+            _build.check(_build.load().silu_grad_table_launch(table.data_ptr(), _build.stream_handle(index)),
+                         "silu_grad_table")
+        _GRAD_TABLES[index] = table
+    return table
+
+
 def silu_fwd(a: torch.Tensor) -> torch.Tensor:
     """silu(a) as the reference rounds it, into a fresh tensor."""
     if not (isinstance(a, torch.Tensor) and a.is_cuda):
@@ -197,10 +215,12 @@ def silu_bwd(a: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
             h = h.contiguous()
             hr = (rows, cols)
         sh = hr[1]
-    lib = _build.load()
-    with _build.on_device(a.device):
-        err = lib.silu_bwd_launch(a.data_ptr(), sa, h.data_ptr(), sh, out.data_ptr(), rows, cols,
-                                  _DTYPES[a.dtype], _build.stream_handle(a.device))
+    index = a.get_device()
+    code = _DTYPES[a.dtype]
+    table = _grad_table(index).data_ptr() if code == 0 else None
+    with _build.on_device(index):
+        err = _build.load().silu_bwd_launch(a.data_ptr(), sa, h.data_ptr(), sh, out.data_ptr(), rows, cols,
+                                            code, table, _build.stream_handle(index))
     _build.check(err, "silu_bwd")
     LAUNCHES["silu_bwd"] += 1
     return out

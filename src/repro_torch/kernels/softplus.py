@@ -217,6 +217,13 @@ def _like_rows(t: torch.Tensor, rows: int, cols: int):
     return t.contiguous(), cols if rows > 1 else t.numel()
 
 
+def _check_flagged(flagged: torch.Tensor | None, x: torch.Tensor) -> None:
+    """Raises unless `flagged` is None or one int64 on x's card."""
+    if flagged is not None and (flagged.dtype != torch.int64 or flagged.device != x.device or flagged.numel() != 1):
+        raise ValueError(f"flagged must be one int64 on {x.device}, got {flagged.dtype} {tuple(flagged.shape)} "
+                         f"on {flagged.device}")
+
+
 def softplus_fwd(x: torch.Tensor, flagged: torch.Tensor | None = None) -> torch.Tensor:
     """softplus(x) as the reference's CPU rounds it, into a fresh dense
     tensor.  On the card, `flagged` (one int64 on x's card) gains the count
@@ -224,9 +231,7 @@ def softplus_fwd(x: torch.Tensor, flagged: torch.Tensor | None = None) -> torch.
     _check("x", x)
     if not _on_card(x):
         return softplus_fwd_plain(x)
-    if flagged is not None and (flagged.dtype != torch.int64 or flagged.device != x.device or flagged.numel() != 1):
-        raise ValueError(f"flagged must be one int64 on {x.device}, got {flagged.dtype} {tuple(flagged.shape)} "
-                         f"on {flagged.device}")
+    _check_flagged(flagged, x)
     out = torch.empty(x.shape, dtype=F32, device=x.device)
     if x.numel() == 0:
         return out
@@ -241,14 +246,17 @@ def softplus_fwd(x: torch.Tensor, flagged: torch.Tensor | None = None) -> torch.
     return out
 
 
-def softplus_bwd(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def softplus_bwd(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
+                 flagged: torch.Tensor | None = None) -> torch.Tensor:
     """The grad of softplus at `x` (whose softplus is `out`) applied to `g`,
-    as `jax.grad` rounds it on the CPU, into a fresh dense tensor."""
+    as `jax.grad` rounds it on the CPU, into a fresh dense tensor.  On the
+    card, `flagged` as for `softplus_fwd`."""
     _check("x", x)
     _check("out", out, x)
     _check("g", g, x)
     if not _on_card(x):
         return softplus_bwd_plain(x, out, g)
+    _check_flagged(flagged, x)
     dx = torch.empty(x.shape, dtype=F32, device=x.device)
     if x.numel() == 0:
         return dx
@@ -257,7 +265,8 @@ def softplus_bwd(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor) -> torch.T
     lib = _build.load()
     with _build.on_device(x.device):
         err = lib.softplus_bwd_launch(x.data_ptr(), sx, out.data_ptr(), so, g.data_ptr(), sg, dx.data_ptr(),
-                                      rows, cols, _build.stream_handle(x.device))
+                                      rows, cols, None if flagged is None else flagged.data_ptr(),
+                                      _build.stream_handle(x.device))
     _build.check(err, "softplus_bwd")
     LAUNCHES["softplus_bwd"] += 1
     return dx

@@ -86,11 +86,65 @@ def rmsnorm_init(shape, device) -> torch.Tensor:
     return torch.ones(shape, dtype=F32, device=device)
 
 
-def rmsnorm(x, scale, eps):
+def _normed(x, eps):
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * scale).to(COMPUTE_DTYPE)
+    return xf * torch.rsqrt(var + eps)
+
+
+def rmsnorm(x, scale, eps):
+    return (_normed(x, eps) * scale).to(COMPUTE_DTYPE)
+
+
+class _SharedScale(torch.autograd.Function):
+    """`out * scale` for a scale that the heads of `out` (..., H, hd) share,
+    its grad summed in one order that no split of the heads changes: each
+    head's partial over the leading dims, then the heads, each by one
+    `sum` over dim 0 of a tensor whose shape is the same on one device and
+    on every rank (a CUDA reduction's order follows its launch shape, and
+    so the count of heads it sees).  With `group` the heads are this
+    rank's run, `rank` of `ranks` equal runs in rank order: the rank sums
+    its heads' products among all the heads' (the others zero), and the
+    ranks' partials are gathered, so every rank sums the heads as one
+    device does (an all-reduce of each rank's total would round
+    otherwise)."""
+
+    @staticmethod
+    def forward(ctx, out, scale, group, rank, ranks):
+        ctx.save_for_backward(out, scale)
+        ctx.group, ctx.rank, ctx.ranks = group, rank, ranks
+        return out * scale
+
+    @staticmethod
+    def backward(ctx, g):
+        out, scale = ctx.saved_tensors
+        gs = None
+        if ctx.needs_input_grad[1]:
+            prod = (g * out).reshape(-1, *out.shape[-2:]).contiguous()
+            if ctx.group is None:
+                heads = prod.sum(0)
+            else:
+                n, h, hd = prod.shape
+                run = slice(ctx.rank * h, (ctx.rank + 1) * h)
+                whole = prod.new_zeros(n, h * ctx.ranks, hd)
+                whole[:, run] = prod
+                heads = P._ag(whole.sum(0)[run], 0, ctx.group)
+            gs = heads.sum(0)
+        return g * scale, gs, None, None, None
+
+
+def head_norm(x, scale, eps, split: bool = False):
+    """`rmsnorm` of q or k (..., H, hd) by the weight its heads share (the
+    q / k norms), its weight grad by `_SharedScale`; with `split` the heads
+    are this rank's run of all of them, split evenly over `model`."""
+    if not (torch.is_grad_enabled() and scale.requires_grad):
+        return rmsnorm(x, scale, eps)
+    plan = P.current() if split else None
+    if plan is None or plan.model_dim is None:
+        args = (None, 0, 1)
+    else:
+        args = (plan.group(plan.model_dim), plan.model_rank, plan.model_size)
+    return _SharedScale.apply(_normed(x, eps), scale, *args).to(COMPUTE_DTYPE)
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +204,7 @@ def _whole_proj(x, w, full: int):
 def _project_q(p, cfg: ModelConfig, xq):
     q = _whole_proj(xq, p["wq"], cfg.num_heads * cfg.hd).reshape(*xq.shape[:-1], cfg.num_heads, cfg.hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        q = head_norm(q, p["q_norm"], cfg.norm_eps)
     return q
 
 
@@ -159,7 +213,7 @@ def _project_qkv(p, cfg: ModelConfig, xq, xkv):
     q = _project_q(p, cfg, xq)
     k, v = (_whole_proj(xkv, p[w], kv * hd).reshape(*xkv.shape[:-1], kv, hd) for w in ("wk", "wv"))
     if cfg.qk_norm:
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        k = head_norm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
@@ -231,8 +285,8 @@ def _attention_tp(p, cfg: ModelConfig, x, positions, causal: bool, kv=None, retu
     if return_kv:  # all kv heads, gathered whole; this rank's taken after their norm and rope
         k_all, v_all = (P.gather_model(y, -1).reshape(*xkv.shape[:-1], kvh, hd) for y in kv_proj)
         if cfg.qk_norm:
-            q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-            k_all = rmsnorm(k_all, p["k_norm"], cfg.norm_eps)
+            q = head_norm(q, p["q_norm"], cfg.norm_eps)
+            k_all = head_norm(k_all, p["k_norm"], cfg.norm_eps)
         if kv is None:
             q = rope(q, positions, cfg.rope_theta)
             k_all = rope(k_all, positions, cfg.rope_theta)
@@ -240,8 +294,8 @@ def _attention_tp(p, cfg: ModelConfig, x, positions, causal: bool, kv=None, retu
     else:
         k, v = (_heads(y, kvh, hd, klo, khi) for y in kv_proj)
         if cfg.qk_norm:
-            q = rmsnorm(q, P.copy_to_model(p["q_norm"]), cfg.norm_eps)
-            k = rmsnorm(k, P.copy_to_model(p["k_norm"]), cfg.norm_eps)
+            q = head_norm(q, p["q_norm"], cfg.norm_eps, split=True)
+            k = head_norm(k, p["k_norm"], cfg.norm_eps, split=True)
         if kv is None:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
@@ -270,8 +324,8 @@ def _attend_units(p, cfg: ModelConfig, q, kv_proj, x, xkv, positions, causal: bo
     ys = (P.gather_model(y, -1) for y in kv_proj) if kv_proj else (xkv @ p[w].to(COMPUTE_DTYPE) for w in ("wk", "wv"))
     k, v = (y.reshape(*xkv.shape[:-1], kvh, hd) for y in ys)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        q = head_norm(q, p["q_norm"], cfg.norm_eps)
+        k = head_norm(k, p["k_norm"], cfg.norm_eps)
     if self_attn:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)

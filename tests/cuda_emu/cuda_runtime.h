@@ -61,6 +61,14 @@ inline uint32_t __umulhi(uint32_t a, uint32_t b) {
   return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);
 }
 inline uint32_t min(uint32_t a, uint32_t b) { return a < b ? a : b; }
+// Bytes of the eight of {y, x} (x's the low four) that the low three bits of each of
+// s's nibbles select, from the result's low byte up.
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = (static_cast<uint64_t>(y) << 32) | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i) r |= static_cast<uint32_t>((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
+  return r;
+}
 
 struct alignas(16) uint4 {
   uint32_t x, y, z, w;

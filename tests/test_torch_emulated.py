@@ -277,6 +277,34 @@ def silu_table(emu_lib):
     return table
 
 
+@pytest.fixture(scope="module")
+def silu_grad_table(emu_lib):
+    """`silu_bwd`'s (d, c) table, built by the emulated `silu_grad_table_launch`."""
+    table = torch.empty(1 << 16, dtype=torch.int32)
+    assert emu_lib.silu_grad_table_launch(table.data_ptr(), None) == 0
+    return table
+
+
+def test_silu_grad_table_is_every_bf16_value(silu_grad_table):
+    """`silu_bwd`'s table (built by the kernel's exact ops) holds, for every
+    bf16 bit pattern a, the reference's d = logistic(a) in its low half and
+    c = d (1 - d) in its high half, as `silu_bwd_plain` rounds them, bit for
+    bit (NaN as NaN): d and c in [0, 1] and never subnormal where a is not
+    NaN."""
+    from repro_torch.kernels import silu as ksilu
+
+    a = silu_case("patterns", torch.bfloat16, 0)
+    x = ksilu._flush(a.float())
+    d = ksilu._logistic(x, torch.bfloat16)
+    c = ksilu._keep(d * ksilu._keep(1 - d, torch.bfloat16), torch.bfloat16)
+    half = lambda bits: (bits & 0xFFFF).to(torch.int16).view(torch.bfloat16)  # noqa: E731
+    assert nan_equal(half(silu_grad_table), d.to(torch.bfloat16))
+    assert nan_equal(half(silu_grad_table >> 16), c.to(torch.bfloat16))
+    assert torch.equal(d.isnan(), a.isnan())
+    for v in (d[~a.isnan()], c[~a.isnan()]):
+        assert bool(((v >= 0) & (v <= 1) & ((v == 0) | (v >= 2.0**-126))).all())
+
+
 def test_silu_table_is_every_bf16_value(silu_table):
     """`silu_fwd`'s table (built by the kernel's exact ops) is
     `silu_fwd_plain` of every bf16 bit pattern, bit for bit."""
@@ -285,16 +313,48 @@ def test_silu_table_is_every_bf16_value(silu_table):
     assert nan_equal(silu_table, ksilu.silu_fwd_plain(silu_case("patterns", torch.bfloat16, 0)))
 
 
+#: Cotangents of every magnitude class for the every-a sweep (bf16 bits): zeros,
+#: subnormals, 2^-126 and its neighbours, small and huge normals, the largest
+#: finite, infinities and NaNs, each of both signs.
+SILU_H_BITS = [0x0000, 0x0001, 0x0020, 0x007F, 0x0080, 0x0081, 0x0100, 0x0380, 0x0400, 0x0C00, 0x3F80, 0x4A00, 0x7000,
+               0x7F7F, 0x7F80, 0x7FC0]
+
+
+def at_phase(t: torch.Tensor, elements: int) -> torch.Tensor:
+    """A copy of `t` (dense) that starts `elements` elements past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype)
+    return buf[elements:elements + t.numel()].view(t.shape).copy_(t)
+
+
+def silu_bwd_emulated(lib, a, h, grad_table):
+    """`silu_bwd` as the wrapper launches it on `a` and `h` (same shape,
+    each in its own layout): `_walk`'s rows of a, h read where it lies (a
+    dense a's h in a's order); the output."""
+    from repro_torch.kernels import silu as ksilu
+
+    a, dense, rows, cols, sa, out = ksilu._walk(a)
+    if dense:
+        if h.stride() != a.stride():
+            h = torch.empty_like(a).copy_(h)
+        sh = sa
+    else:
+        sh = ksilu._rows(h)[1]
+    code = ksilu._DTYPES[a.dtype]
+    table = grad_table.data_ptr() if code == 0 else None
+    assert lib.silu_bwd_launch(a.data_ptr(), sa, h.data_ptr(), sh, out.data_ptr(), rows, cols, code, table,
+                               None) == 0
+    return out
+
+
 @pytest.mark.parametrize("layout", ["dense", "tail", "permuted", "rows", "misaligned", "patterns"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_silu_emulated_matches_plain(emu_lib, silu_table, layout, dtype):
+def test_silu_emulated_matches_plain(emu_lib, silu_table, silu_grad_table, layout, dtype):
     """`silu_fwd` and `silu_bwd` over the walks the wrapper hands them
-    (`kernels.silu._walk`: one dense row, or rows with their own stride; the
-    forward's 16-byte vectors with a scalar head and tail, stored whole or
-    one by one as the output's phase allows; the backward's tiles of 2048
-    meeting a row's end), against the plain versions: bf16 bit for bit, f32
-    by `f32_close`; a row stride shorter than the row, and bf16 without a
-    table, are refused."""
+    (`kernels.silu._walk`: one dense row, or rows with their own stride;
+    16-byte vectors with a scalar head and tail, stored whole or one by one
+    as the output's phase allows), against the plain versions: bf16 bit for
+    bit, f32 by `f32_close`; a row stride shorter than the row, and bf16
+    without a table, are refused."""
     from repro_torch.kernels import silu as ksilu
 
     a = silu_case(layout, dtype, 5)
@@ -310,18 +370,59 @@ def test_silu_emulated_matches_plain(emu_lib, silu_table, layout, dtype):
         assert emu_lib.silu_fwd_launch(a.data_ptr(), sa, y.data_ptr(), rows, cols, code, None, None) != 0
     else:
         assert f32_close(y, fwd, fwd.abs()), layout
-    if dense:
-        h = torch.empty_like(a).copy_(h)
-        sh = sa
-    else:
-        sh = ksilu._rows(h)[1]
-    out = torch.empty_like(y)
-    assert emu_lib.silu_bwd_launch(a.data_ptr(), sa, h.data_ptr(), sh, out.data_ptr(), rows, cols, code, None) == 0
+    out = silu_bwd_emulated(emu_lib, a, h, silu_grad_table)
     if dtype == torch.bfloat16:
         assert nan_equal(out, bwd), layout
     else:
         assert f32_close(out, bwd, h.abs() * (1 + a.abs())), layout
     assert emu_lib.silu_fwd_launch(a.data_ptr(), cols - 1, y.data_ptr(), 2, cols, code, table, None) != 0
+    assert emu_lib.silu_bwd_launch(a.data_ptr(), cols - 1, a.data_ptr(), cols, y.data_ptr(), 2, cols, code, table,
+                                   None) != 0
+    if dtype == torch.bfloat16:
+        assert emu_lib.silu_bwd_launch(a.data_ptr(), sa, a.data_ptr(), sa, y.data_ptr(), rows, cols, code, None,
+                                       None) != 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("layout", ["dense", "rows"])
+@pytest.mark.parametrize("phase_a,phase_h", [(0, 1), (1, 0), (3, 6), (2, 2)])
+def test_silu_bwd_emulated_at_other_phases(emu_lib, silu_grad_table, dtype, layout, phase_a, phase_h):
+    """`silu_bwd` where a and h (and so the output) lie at other 16-byte
+    phases, in elements: a dense one row (h read in a's order), or rows of
+    a column slice with h dense: h's vectors read element by element where
+    its phase is not a's, the output stored one by one where its is not;
+    bit for bit against the plain version (f32 by `f32_close`)."""
+    from repro_torch.kernels import silu as ksilu
+
+    width = 16 // torch.tensor([], dtype=dtype).element_size()
+    rng = np.random.default_rng(11 + phase_a + 4 * phase_h)
+    draw = lambda *shape: torch.from_numpy((rng.standard_normal(shape) * 4).astype(np.float32)).to(dtype)  # noqa: E731
+    if layout == "dense":
+        a, h = at_phase(draw(3, 1001), phase_a % width), at_phase(draw(3, 1001), phase_h % width)
+    else:
+        a = at_phase(draw(4, 1030), phase_a % width)[..., 5:1005]
+        h = at_phase(draw(4, 1000), phase_h % width)
+    out = silu_bwd_emulated(emu_lib, a, h, silu_grad_table)
+    bwd = ksilu.silu_bwd_plain(a, h)
+    if dtype == torch.bfloat16:
+        assert nan_equal(out, bwd)
+    else:
+        assert f32_close(out, bwd, h.abs() * (1 + a.abs()))
+
+
+def test_silu_bwd_emulated_every_a_against_every_h_class(emu_lib, silu_grad_table):
+    """`silu_bwd` on all 65,536 bf16 values of a against cotangents of every
+    magnitude class (`SILU_H_BITS`, both signs: subnormal, at and beside
+    2^-126, huge, +-inf, NaN), bit for bit (NaN as NaN) against the plain
+    version: where the flag sends elements to the reference's ops (an
+    operand or a result in (0, 2^-126]) and where the packed ops stand."""
+    from repro_torch.kernels import silu as ksilu
+
+    a = silu_case("patterns", torch.bfloat16, 0)
+    hs = np.array(SILU_H_BITS + [b | 0x8000 for b in SILU_H_BITS], dtype=np.uint16)
+    a = a.repeat(len(hs), 1)
+    h = torch.from_numpy(np.repeat(hs[:, None], 1 << 16, axis=1).astype(np.int16)).view(torch.bfloat16)
+    assert nan_equal(silu_bwd_emulated(emu_lib, a, h, silu_grad_table), ksilu.silu_bwd_plain(a, h))
 
 
 def test_silu_emulated_misaligned_output(emu_lib, silu_table):
@@ -366,11 +467,11 @@ def test_softplus_emulated_matches_plain(emu_lib, layout):
     """`softplus_fwd` and `softplus_bwd` (`csrc/softplus.cu`) over the
     layouts the wrapper hands them (`kernels.softplus._layout`: one dense
     row, or rows with their own strides), bit for bit against the plain
-    versions (the grad's NaNs as NaNs); the forward with and without its
-    count of elements that took the CPU's ops (of the normal draws those
-    past |x| ~ 28.75, where log1p's e^3 / 3 falls below 2^-126; some of the
-    patterns and edges; the same values either way); a row
-    stride shorter than the row is refused."""
+    versions (the grad's NaNs as NaNs); each with and without its count of
+    elements that took the CPU's ops (for the forward, of the normal draws
+    those past |x| ~ 28.75, where log1p's e^3 / 3 falls below 2^-126; some
+    of the patterns and edges; for the grad some of each layout; the same
+    values either way); a row stride shorter than the row is refused."""
     from repro_torch.kernels import softplus as ksp
 
     x0 = softplus_case(layout, 7)
@@ -390,13 +491,60 @@ def test_softplus_emulated_matches_plain(emu_lib, layout):
     g, sg = ksp._like_rows(softplus_case(layout, 8), rows, cols)
     if layout not in ("patterns", "edges"):
         g = g / 8 if rows == 1 else g.div_(8)
-    dx = torch.empty(x.shape)
-    assert emu_lib.softplus_bwd_launch(x.data_ptr(), sx, o.data_ptr(), so, g.data_ptr(), sg, dx.data_ptr(), rows,
-                                       cols, None) == 0
     want = ksp.softplus_bwd_plain(x, o, g)
-    same_bits = dx.view(torch.int32) == want.view(torch.int32)
-    assert bool((same_bits | (dx.isnan() & want.isnan())).all()), layout
+    flagged.zero_()
+    for count in (None, flagged.data_ptr()):
+        dx = torch.full(x.shape, float("nan"))
+        assert emu_lib.softplus_bwd_launch(x.data_ptr(), sx, o.data_ptr(), so, g.data_ptr(), sg, dx.data_ptr(), rows,
+                                           cols, count, None) == 0
+        same_bits = dx.view(torch.int32) == want.view(torch.int32)
+        assert bool((same_bits | (dx.isnan() & want.isnan())).all()), (layout, count)
+    assert 0 < flagged.item() < x.numel(), flagged
     assert emu_lib.softplus_fwd_launch(x.data_ptr(), cols - 1, out.data_ptr(), 2, cols, None, None) != 0
+    assert emu_lib.softplus_bwd_launch(x.data_ptr(), cols - 1, o.data_ptr(), so, g.data_ptr(), sg, dx.data_ptr(), 2,
+                                       cols, None, None) != 0
+
+
+def softplus_grad_edges():
+    """(x, g) where the grad's chain meets 2^-126: exp(d) there (x about
+    -87.34, d = x - softplus(x)), g * exp(d) there (g = 2^-100 and x about
+    -18.02; g = 2^-126 and x about 0), subnormal cotangents, zero
+    cotangents, and x past ~17, where softplus(x) rounds to x and d is 0;
+    each beside normal draws, both signs of g."""
+    near = lambda v, k=60: np.float32(v).view(np.uint32) + np.arange(-k, k + 1, dtype=np.int64)  # noqa: E731
+    as_f32 = lambda bits: np.asarray(bits, dtype=np.uint32).view(np.float32)  # noqa: E731
+    rng = np.random.default_rng(3)
+    xs, gs = [], []
+    for x_bits, g in ((near(-87.3365), 1.0), (near(-87.3365), 3.0), (near(-18.0218), 2.0**-100),
+                      (near(-0.6931), 2.0**-125), (near(0.0, 8), 2.0**-126), (near(17.5), 1.0),
+                      (near(40.0), 1.0), (near(-2.0), 2.0**-130), (near(-2.0), 0.0)):
+        xs.append(as_f32(x_bits))
+        gs.append(np.full(len(x_bits), g, dtype=np.float32))
+    xs.append((rng.standard_normal(500) * 4).astype(np.float32))
+    gs.append(rng.standard_normal(500).astype(np.float32))
+    x, g = np.concatenate(xs), np.concatenate(gs)
+    return torch.from_numpy(np.concatenate([x, x])), torch.from_numpy(np.concatenate([g, -g]))
+
+
+def test_softplus_bwd_emulated_edges(emu_lib):
+    """`softplus_bwd` where its chain meets 2^-126 (`softplus_grad_edges`),
+    out the plain forward's, bit for bit against the plain version (NaN as
+    NaN), with its count of elements that took the CPU's ops neither 0 nor
+    all of them."""
+    from repro_torch.kernels import softplus as ksp
+
+    x, g = softplus_grad_edges()
+    o = ksp.softplus_fwd_plain(x)
+    want = ksp.softplus_bwd_plain(x, o, g)
+    flagged = torch.zeros(1, dtype=torch.int64)
+    dx = torch.full(x.shape, float("nan"))
+    assert emu_lib.softplus_bwd_launch(x.data_ptr(), x.numel(), o.data_ptr(), x.numel(), g.data_ptr(), x.numel(),
+                                       dx.data_ptr(), 1, x.numel(), flagged.data_ptr(), None) == 0
+    same_bits = dx.view(torch.int32) == want.view(torch.int32)
+    assert bool((same_bits | (dx.isnan() & want.isnan())).all())
+    assert 0 < flagged.item() < x.numel(), flagged
+    tiny = (want.abs() <= 2.0**-126) & (want != 0)
+    assert not tiny.any() and bool(((want == 0) & (g != 0)).any())  # results flushed where the CPU flushes
 
 
 def test_empty_launch_emulated(emu_lib):

@@ -328,6 +328,36 @@ def test_silu_fwd_on_every_bf16_value_and_a_misaligned_slice(cuda):
         assert torch.equal(got.isnan(), nan)
         assert torch.equal(got[~nan].view(torch.int16), exp[~nan].view(torch.int16))
 
+def test_silu_bwd_on_every_bf16_value_against_every_cotangent_class_and_other_phases(cuda):
+    """`silu_bwd` (its (d, c) table and packed ops, elements within 2^-126
+    re-done by the exact ops) on every bf16 a against cotangents of every
+    magnitude class, both signs (zero, subnormal, at and beside 2^-126,
+    huge, inf, NaN), and with a, h and the output at different 16-byte
+    phases, against the plain version: equal bits where not nan, nan where
+    nan."""
+    from repro_torch.kernels import silu as ks
+
+    classes = [0x0000, 0x0001, 0x0020, 0x007F, 0x0080, 0x0081, 0x0100, 0x0380, 0x0400, 0x0C00, 0x3F80, 0x4A00,
+               0x7000, 0x7F7F, 0x7F80, 0x7FC0]
+    hs = np.array(classes + [b | 0x8000 for b in classes], dtype=np.uint16)
+    every = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    a = torch.from_numpy(np.tile(every, (len(hs), 1))).to(cuda, torch.bfloat16)
+    h = torch.from_numpy(np.repeat(hs[:, None], 1 << 16, axis=1).astype(np.int16)).to(cuda).view(torch.bfloat16)
+    rng = np.random.default_rng(2)
+
+    def draw(*shape):
+        return torch.from_numpy((rng.standard_normal(shape) * 3).astype(np.float32)).to(cuda, torch.bfloat16)
+
+    buf_a, buf_h = draw(4 * 64 * 3072 + 8), draw(4 * 64 * 3072 + 8)
+    shifted = [(buf_a[5:5 + 4 * 64 * 3072].view(4, 64, 3072), buf_h[2:2 + 4 * 64 * 3072].view(4, 64, 3072)),
+               (draw(4, 64, 6448)[..., 1:3073], draw(4, 64, 3072))]
+    for x, ct in [(a, h), *shifted]:
+        got, exp = ks.silu_bwd(x, ct), ks.silu_bwd_plain(x, ct)
+        nan = exp.isnan()
+        assert torch.equal(got.isnan(), nan)
+        assert torch.equal(got[~nan].view(torch.int16), exp[~nan].view(torch.int16))
+
+
 def test_ssd_head_split_is_exact_on_the_card(cuda):
     """The SSD's heads split into the runs of 4 and 2 ranks on one card,
     forward and backward, equal to the whole call bit for bit
@@ -381,8 +411,10 @@ def test_softplus_kernels_on_a_sweep_of_bit_patterns(cuda):
     g = (~x.view(torch.int32)).view(torch.float32)
     y, want = ksp.softplus_fwd(x), ksp.softplus_fwd_plain(x)
     assert torch.equal(y.view(torch.int32), want.view(torch.int32))
-    dx, want = ksp.softplus_bwd(x, y, g), ksp.softplus_bwd_plain(x, y, g)
+    flagged = torch.zeros(1, dtype=torch.int64, device=cuda)
+    dx, want = ksp.softplus_bwd(x, y, g, flagged=flagged), ksp.softplus_bwd_plain(x, y, g)
     assert bool(((dx.view(torch.int32) == want.view(torch.int32)) | (dx.isnan() & want.isnan())).all())
+    assert 0 < int(flagged.item()) < x.numel()  # the grad's CPU ops taken where an intermediate nears 2^-126
 
 
 #: (rows, inner, whole width, ranks): jamba's and mamba2's in-projection

@@ -172,7 +172,7 @@ def test_chip_smoke_silu_check_on_cpu():
     the signs of zeros."""
     cs = __import__("test_torch_serve")._load_chip_smoke()
     out = cs.check_silu(np.random.default_rng(0), "cpu")
-    assert out["max_abs_err"] == {"silu_fwd": 0.0, "silu_bwd": 0.0} and out["cases"] == len(cs.SILU_SHAPES) + 4
+    assert out["max_abs_err"] == {"silu_fwd": 0.0, "silu_bwd": 0.0} and out["cases"] == len(cs.SILU_SHAPES) + 8
     assert [c["contiguous"] for c in out["checks"][:len(cs.SILU_SHAPES)]] == [c is None for _, _, c in cs.SILU_SHAPES]
     t = torch.tensor([0.0, 1.0, float("inf"), float("nan")])
     assert cs.float_err(t, t.clone()) == 0.0

@@ -149,19 +149,24 @@ def test_train_step_keeps_serving_unchanged(monkeypatch):
     opt_cfg = OptConfig(total_steps=10, warmup_steps=1)
     opt_state = steps.make_opt_init(cfg, opt_cfg)(params)
     flag = torch.backends.cuda.matmul
-    seen, rmsnorm = [], PL.rmsnorm
+    seen, norms = [], {name: getattr(PL, name) for name in ("rmsnorm", "head_norm")}
 
-    def spy(*args, **kwargs):  # called in the forward and again in the backward's recompute
-        seen.append(flag.allow_bf16_reduced_precision_reduction)
-        return rmsnorm(*args, **kwargs)
+    def spy(norm):
+        def call(*args, **kwargs):  # called in the forward and again in the backward's recompute
+            seen.append(flag.allow_bf16_reduced_precision_reduction)
+            return norm(*args, **kwargs)
+        return call
 
-    monkeypatch.setattr(PL, "rmsnorm", spy)
+    for name, norm in norms.items():
+        monkeypatch.setattr(PL, name, spy(norm))
     monkeypatch.setattr(flag, "allow_bf16_reduced_precision_reduction", True)
     batch = to_device(SyntheticStream(cfg, 2, 16, seed=0).batch_at(1), "cpu")
     steps.make_train_step(dataclasses.replace(cfg, remat=True), opt_cfg)(params, opt_state, batch, 1)
     assert seen and not any(seen) and flag.allow_bf16_reduced_precision_reduction
-    assert len(seen) == (4 * cfg.reps + 1) + 4 * cfg.reps  # forward (4 a rep, the final norm), recompute
-    monkeypatch.setattr(PL, "rmsnorm", rmsnorm)
+    # forward (4 a rep: ln1, the q / k norms, ln2; the final norm), recompute
+    assert len(seen) == (4 * cfg.reps + 1) + 4 * cfg.reps
+    for name, norm in norms.items():
+        monkeypatch.setattr(PL, name, norm)
     assert all(p is q and not p.requires_grad for p, q in zip(leaves(model.params), frozen))
     assert any(not torch.equal(p, b) for p, b in zip(frozen, before))
     again = serve_lib.generate(model, res["inputs"], 8, 3)

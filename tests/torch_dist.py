@@ -10,7 +10,10 @@ script's `body(rank, world, tmp)` runs on that many
 ranks: `torch.multiprocessing.spawn`, a gloo (or `backend`) process group
 met through a `file://` store under `tmp_path` (no TCP port, so parallel
 test workers never collide), a 60 s collective timeout, one intra-op
-thread per rank, and `destroy_process_group` in a `finally`.  A rank
+thread per rank, a barrier once `body` returns (so that no rank tears
+down a group another rank is still connecting to: gloo's connection
+setup then fails with "Connection closed by peer"), and
+`destroy_process_group` in a `finally`.  A rank
 reports by returning a JSON-able value, which `run_child` returns as a
 list indexed by rank.  Without `world` the script runs as written and its
 stdout comes back.
@@ -43,6 +46,9 @@ def _rank(rank, world, tmp, backend):
                             timeout=timedelta(seconds=60))
     try:
         out = body(rank, world, tmp)
+        # no rank tears its groups down while another still connects to it: the last
+        # groups a body makes (a mesh's) end with no collective that all ranks share
+        dist.barrier()
     finally:
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
