@@ -1,0 +1,9 @@
+"""The share of the traced stretch in which no operation runs on the
+device, from the profiler's timeline."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
