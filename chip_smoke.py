@@ -58,7 +58,7 @@ Phases, one JSON line each:
               bytes over the memory rate and integer instructions over the
               issue rate), the plain version and a library call where one
               exists, the whole polymul_ntt, and the RNS ops ct_mul,
-              keyswitch, ct_mul_relin and rescale beside their floors; the
+              keyswitch, ct_mul_relin and rescale with their launches; the
               silu kernels at `SILU_TIMED` beside their byte bound,
               their plain versions and `F.silu` / `aten.silu_backward`, the
               build time of each kernel's table and the host's enqueue time
@@ -1324,19 +1324,6 @@ def time_polymul(rng, device, batch: int, n: int, sm_mhz: float, tile: int = TIL
     }
 
 
-def transform_floor_ms(n: int, rows: int, sm_mhz: float, tile: int = TILE) -> float:
-    """Sum of the bounds of one transform's launches over `rows` rows of n:
-    each launch reads and writes the rows once, B1 also its twiddle rows
-    (2 x n words), each B2 launch its group's twiddles."""
-    t = kntt.resolve_tile(tile, n)
-    words = rows * n
-    total = bound(8 * words + 8 * n, words // 2 * (t.bit_length() - 1), sm_mhz)["bound_ms"]
-    for group in kntt.inter_groups(n, t, True):
-        total += bound(8 * words + 8 * sum(st.blocks for st in group), words // 2 * len(group),
-                       sm_mhz)["bound_ms"]
-    return total
-
-
 def rns_work(op: str, towers: int) -> dict:
     """What one call of `op` does at L = `towers`, in rows of n residues:
     `calls`, per tower the rows of each (forward call, inverse call, modmul
@@ -1365,50 +1352,11 @@ def rns_work(op: str, towers: int) -> dict:
     return {"calls": calls, "elementwise": rows}
 
 
-def rns_floor_ms(op: str, n: int, towers: int, sm_mhz: float) -> dict:
-    """The floor of one call of `op`: the sum of its launches' bounds plus
-    its elementwise bytes over the memory rate."""
-    work = rns_work(op, towers)
-    kernels_ms = towers * sum(transform_floor_ms(n, fwd, sm_mhz) + transform_floor_ms(n, inv, sm_mhz)
-                              + bound(12 * mul * n, 0, sm_mhz)["bound_ms"]
-                              for fwd, inv, mul in work["calls"])
-    elementwise_bytes = 4 * work["elementwise"] * n
-    elementwise_ms = elementwise_bytes / HBM_BYTES_PER_S * 1e3
-    return {"floor_ms": kernels_ms + elementwise_ms, "kernels_bound_ms": kernels_ms,
-            "elementwise_bytes": elementwise_bytes, "elementwise_ms": elementwise_ms}
-
-
-def device_breakdown(fn, calls: int = 3) -> dict:
-    """Device time per call of `fn` by kernel, from torch.profiler's CUDA
-    activity over `calls` calls: each of the port's kernels by name, every
-    other device kernel (torch's elementwise passes) as `torch`.
-    `busy_ms` is their sum: the device's busy time, without the gaps."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us, count = collections.Counter(), collections.Counter()
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = next((k for k in KERNEL_INFO if f"{k}_kernel" in e.name), "torch")
-        us[name] += e.time_range.elapsed_us()
-        count[name] += 1
-    return {"busy_ms": sum(us.values()) / calls / 1e3,
-            "ms": {k: v / calls / 1e3 for k, v in us.items()},
-            "kernels_per_call": {k: v / calls for k, v in count.items()}}
-
-
-def time_rns(device, sm_mhz: float, n: int = RNS_SHAPE[0], towers: int = RNS_SHAPE[1],
+def time_rns(device, n: int = RNS_SHAPE[0], towers: int = RNS_SHAPE[1],
              seed: int = SEED) -> dict:
     """Each RNS op per call at (n, towers): device time (one call per block,
-    queued behind a GPU sleep), wall and host time, its launches by kernel
-    (counted over one call and checked against `rns_launches`), its floor,
-    and the device's idle share of the wall time."""
+    queued behind a GPU sleep), wall and host time, and its launches by
+    kernel (counted over one call and checked against `rns_launches`)."""
     basis = he.make_basis(n, towers)
     s = he.make_secret(basis, seed, device=device)
     rlk = he.relin_key(basis, s, seed=seed + 3)
@@ -1431,9 +1379,7 @@ def time_rns(device, sm_mhz: float, n: int = RNS_SHAPE[0], towers: int = RNS_SHA
         if launches != expected:
             raise AssertionError(f"{op}: launches {launches}, expected {expected}")
         rec = time_ms(calls[op], 1, reps=7)
-        out[op] = {**rec, "launches": launches, **rns_floor_ms(op, n, towers, sm_mhz),
-                   "device_idle_share": 1 - rec["ms"] / rec["wall_ms"],
-                   "profile": device_breakdown(calls[op])}
+        out[op] = {**rec, "launches": launches}
     return {"n": n, "towers": towers, "ops": out}
 
 
@@ -2445,7 +2391,7 @@ def main() -> int:
     sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     timing = {f"{b}x{n}": time_kernels(rng, device, b, n, sm_mhz) for b, n in MAIN_SHAPES}
     polymul = [time_polymul(rng, device, b, n, sm_mhz) for b, n in MAIN_SHAPES]
-    rns_timing = time_rns(device, sm_mhz)
+    rns_timing = time_rns(device)
     silu_timing = time_silu(rng, device)
     softplus_timing = time_softplus(device)
     power = nvidia_smi("name,power.limit,power.draw,clocks.sm,temperature.gpu")

@@ -36,6 +36,13 @@ call, one inverse call); `ct_mul_relin` their sum; `rescale` none.
 torch's uint32 has no indexing, copying or arithmetic on the card, so
 every layout move (`movedim`, `cat`, `stack`, slicing) goes through the
 int32 view and arithmetic through `core.modmath.as_i64` / `to_u32`.
+
+What a call costs, counted always: `HOST_S` holds the host seconds inside
+`poly_mul_towers`, `COPY_BYTES` the bytes the tower split (`_split`) and
+join (`_join`) copy (`counters`, `reset_counters`).  Under `torch.profiler`
+a product call opens the spans `repro_torch.rns.poly_mul_towers` and, in
+it, `repro_torch.rns.split`, `repro_torch.rns.towers` (the per-tower loop)
+and `repro_torch.rns.join`; the kernel wrappers open their own.
 """
 from __future__ import annotations
 
@@ -47,9 +54,31 @@ import torch
 
 from repro_torch.core import modmath as mm
 from repro_torch.core import ntt
+from repro_torch.kernels._build import span, timed_span
 from repro_torch.kernels.modmul import modmul_cuda
 from repro_torch.kernels.ntt import ntt_cuda
 from repro_torch.kernels.ops import _place
+
+#: Host seconds inside `poly_mul_towers`, entry to return, summed over calls.
+HOST_S = {"poly_mul_towers": 0.0}
+#: Bytes the tower split and join copy, summed over calls: each word a copy
+#: writes is read once and written once (8 bytes); no copy, no bytes.
+COPY_BYTES = {"split": 0, "join": 0}
+_COPY_BYTES_PER_WORD = 8
+
+
+def counters() -> dict[str, dict]:
+    """The op's counters so far: `host_s` (`HOST_S`) and `copy_bytes`
+    (`COPY_BYTES`), as copies."""
+    return {"host_s": dict(HOST_S), "copy_bytes": dict(COPY_BYTES)}
+
+
+def reset_counters() -> None:
+    """Sets `HOST_S` and `COPY_BYTES` to 0."""
+    HOST_S["poly_mul_towers"] = 0.0
+    for name in COPY_BYTES:
+        COPY_BYTES[name] = 0
+
 
 # --------------------------------------------------------------------------
 # Basis
@@ -234,20 +263,27 @@ def _rows(t: torch.Tensor, sl) -> torch.Tensor:
 def _split(basis: RnsBasis, *xs: torch.Tensor) -> list[torch.Tensor]:
     """Per tower i, the rows `x[..., i, :]` of each of `xs` in order, as one
     contiguous uint32 (rows, n) block: the one copy that moves the tower
-    axis to the front (none for a single `[L, n]`)."""
+    axis to the front (none for a single `[L, n]`).  A broadcast operand's
+    rows are written out by the copy, and counted in `COPY_BYTES`."""
     big_l, n = basis.towers, basis.n
-    parts = []
-    for x in xs:
-        _check_towers(basis, x)
-        parts.append(x.view(torch.int32).movedim(-2, 0).reshape(big_l, -1, n))
-    front = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0].contiguous()
-    return [front[i].view(torch.uint32) for i in range(big_l)]
+    with span("repro_torch.rns.split"):
+        parts = []
+        for x in xs:
+            _check_towers(basis, x)
+            parts.append(x.view(torch.int32).movedim(-2, 0).reshape(big_l, -1, n))
+        front = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0].contiguous()
+        if front.data_ptr() != parts[0].data_ptr():
+            COPY_BYTES["split"] += _COPY_BYTES_PER_WORD * front.numel()
+        return [front[i].view(torch.uint32) for i in range(big_l)]
 
 
 def _join(towers: list[torch.Tensor], lead: tuple[int, ...]) -> torch.Tensor:
-    """Per-tower (rows, n) blocks -> `[*lead, L, n]`, one copy."""
-    out = torch.stack([t.view(torch.int32) for t in towers], dim=1)
-    return out.reshape(*lead, len(towers), out.shape[-1]).view(torch.uint32)
+    """Per-tower (rows, n) blocks -> `[*lead, L, n]`, one copy (counted in
+    `COPY_BYTES`)."""
+    with span("repro_torch.rns.join"):
+        out = torch.stack([t.view(torch.int32) for t in towers], dim=1)
+        COPY_BYTES["join"] += _COPY_BYTES_PER_WORD * out.numel()
+        return out.reshape(*lead, len(towers), out.shape[-1]).view(torch.uint32)
 
 
 def _addmod(x: torch.Tensor, y: torch.Tensor, q) -> torch.Tensor:
@@ -298,22 +334,26 @@ def make_secret(basis: RnsBasis, seed: int = 0, device=None) -> torch.Tensor:
     return _place(out, device)
 
 
+@timed_span(HOST_S, "poly_mul_towers", "repro_torch.rns.poly_mul_towers")
 def poly_mul_towers(basis: RnsBasis, a, b, device=None) -> torch.Tensor:
     """Negacyclic product per tower of `[..., L, n]` operands, broadcast
     against each other as the reference's: per tower one forward call
-    over the rows of both, one B3 call, one inverse call."""
+    over the rows of both, one B3 call, one inverse call.  Each call adds
+    its host seconds to `HOST_S`."""
     a = _place(a, device)
     b = _place(b, a.device if device is None else device)
     _check_towers(basis, a)
     _check_towers(basis, b)
     shape = torch.broadcast_shapes(a.shape, b.shape)
     a, b = (x.view(torch.int32).expand(shape).view(torch.uint32) for x in (a, b))
+    blocks = _split(basis, a, b)
     out = []
-    for t, ctx in zip(_split(basis, a, b), basis.contexts):
-        h = ntt_cuda(t, ctx)
-        r = h.shape[0] // 2
-        out.append(ntt_cuda(modmul_cuda(_rows(h, slice(0, r)), _rows(h, slice(r, None)), ctx),
-                            ctx, forward=False))
+    with span("repro_torch.rns.towers"):
+        for t, ctx in zip(blocks, basis.contexts):
+            h = ntt_cuda(t, ctx)
+            r = h.shape[0] // 2
+            out.append(ntt_cuda(modmul_cuda(_rows(h, slice(0, r)), _rows(h, slice(r, None)), ctx),
+                                ctx, forward=False))
     return _join(out, tuple(shape[:-2]))
 
 

@@ -13,8 +13,18 @@ def launch_counts() -> dict[str, int]:
     return {**ntt.LAUNCHES, **modmul.LAUNCHES}
 
 
+def host_seconds() -> dict[str, float]:
+    """Host seconds so far in the NTT lane's wrappers (`ntt_cuda`,
+    `modmul_cuda`), entry to return, by wrapper."""
+    return {**ntt.HOST_S, **modmul.HOST_S}
+
+
 def reset_launch_counts() -> None:
-    """Sets every kernel's launch count to 0, the chain's, silu's and softplus's included."""
+    """Sets every kernel's launch count to 0, the chain's, silu's and
+    softplus's included, and the wrappers' host seconds."""
     for counts in (ntt.LAUNCHES, modmul.LAUNCHES, fold.LAUNCHES, silu.LAUNCHES, softplus.LAUNCHES):
         for name in counts:
             counts[name] = 0
+    for seconds in (ntt.HOST_S, modmul.HOST_S):
+        for name in seconds:
+            seconds[name] = 0.0

@@ -1,6 +1,6 @@
 """Builds the port's CUDA kernels at first use and binds them with ctypes;
 also the launch helpers every wrapper shares (argument checks, launch
-errors, the current stream).
+errors, the current stream, the profiler spans).
 
 `nvcc` compiles every source under `csrc/` for `sm_90a` (one process per
 source, all started together) and links them into one shared library with
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -23,6 +24,7 @@ import threading
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent / "_build"
@@ -34,6 +36,7 @@ NVCC_TIMEOUT_S = 600
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _report: dict | None = None
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _sources() -> list[pathlib.Path]:
@@ -217,3 +220,31 @@ def empty_launch(blocks: int, threads: int, device) -> None:
     """An empty kernel of `blocks` CTAs of `threads` on `device`'s current
     stream: the floor under a launch of that shape."""
     check(load().empty_launch(blocks, threads, stream_handle(device)), "empty")
+
+
+def span(name: str):
+    """A `record_function` span called `name` while `torch.profiler` records,
+    else a shared null context.  The span lands in the profiler's trace on
+    the clock of the device's operations, so each launch made inside it (by
+    the launch's correlation id) and each idle stretch of the device can be
+    put down to it.  With the profiler off a span costs one flag read, where
+    an unguarded `record_function` costs microseconds a span even then."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def timed_span(host_s: dict[str, float], key: str, name: str):
+    """Decorator: each call of the function runs inside `span(name)` and
+    adds its host seconds, entry to return, to `host_s[key]`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            t0 = time.perf_counter_ns()
+            try:
+                with span(name):
+                    return fn(*args, **kwargs)
+            finally:
+                host_s[key] += (time.perf_counter_ns() - t0) * 1e-9
+        return call
+    return wrap

@@ -15,6 +15,9 @@ from repro_torch.kernels import _build
 
 #: Kernel launches made by `modmul_cuda`; the plain version adds nothing.
 LAUNCHES = {"modmul": 0}
+#: Host seconds in `modmul_cuda`, entry to return, summed over its calls on
+#: either device.
+HOST_S = {"modmul_cuda": 0.0}
 
 
 def modmul_plain(a: torch.Tensor, b: torch.Tensor, ctx: NttContext) -> torch.Tensor:
@@ -23,8 +26,11 @@ def modmul_plain(a: torch.Tensor, b: torch.Tensor, ctx: NttContext) -> torch.Ten
     return mm.to_u32(prod)
 
 
+@_build.timed_span(HOST_S, "modmul_cuda", "repro_torch.kernels.modmul_cuda")
 def modmul_cuda(a: torch.Tensor, b: torch.Tensor, ctx: NttContext) -> torch.Tensor:
-    """Element-wise a*b mod q over any (..., n) uint32 shape, into a fresh tensor."""
+    """Element-wise a*b mod q over any (..., n) uint32 shape, into a fresh
+    tensor.  Each call adds its host seconds to `HOST_S` and runs inside the
+    span `repro_torch.kernels.modmul_cuda`."""
     _build.check_u32("a", a)
     _build.check_u32("b", b, a.device)
     if a.shape != b.shape:

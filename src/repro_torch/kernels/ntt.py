@@ -52,6 +52,9 @@ PAIR_MAX_STAGES = 4
 
 #: Kernel launches made by the wrappers, by kernel; plain versions add nothing.
 LAUNCHES = {"ntt_tile": 0, "ntt_pair": 0}
+#: Host seconds in `ntt_cuda`, entry to return, summed over its calls on
+#: either device.
+HOST_S = {"ntt_cuda": 0.0}
 
 
 def _log2(v: int) -> int:
@@ -317,6 +320,7 @@ def resolve_tile(tile: int | None, n: int) -> int:
     return min(tile, n, MAX_TILE)
 
 
+@_build.timed_span(HOST_S, "ntt_cuda", "repro_torch.kernels.ntt_cuda")
 def ntt_cuda(x: torch.Tensor, ctx: NttContext, forward: bool = True, tile: int | None = None):
     """Batched negacyclic NTT over the last axis of (batch, n) or (n,) uint32.
 
@@ -336,6 +340,9 @@ def ntt_cuda(x: torch.Tensor, ctx: NttContext, forward: bool = True, tile: int |
     32768-word tiles.  Every tiling gives the same canonical values.  The
     reference's `batch_block`, `interpret` and odd-batch padding belong to
     the TPU grid and have no counterpart here.
+
+    Each call adds its host seconds to `HOST_S` and runs inside the span
+    `repro_torch.kernels.ntt_cuda`.
     """
     _build.check_u32("x", x)
     n = ctx.n
